@@ -1,0 +1,7 @@
+from repro_torch.runtime.scheduler import (  # noqa: F401
+    AdmissionQueue, KVBlockPager, Request, RequestState, SlotTable,
+)
+from repro_torch.runtime.server import (  # noqa: F401
+    BatchServer, decode_request, encode_request, encode_response,
+)
+from repro_torch.runtime.niccost import NicCostModel, NullNicCostModel  # noqa: F401
