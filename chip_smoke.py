@@ -1,30 +1,44 @@
 """Chip smoke test of the PyTorch port: builds the hand-written CUDA
 kernels from this checkout and drives the paged serving engine on one
-card.
+card, for the dense family (mistral-nemo-12b) and the moe family
+(granite-moe-3b-a800m).
 
     python3 chip_smoke.py            # every phase; needs one CUDA card
     python3 chip_smoke.py --quick    # device, build, kernel checks only
+    python3 chip_smoke.py --profile  # also trace both engines
 
 Phases (each prints its own lines and wall time; any failure raises):
   1. device   — card name, and name + power limit from nvidia-smi;
-  2. build    — both kernels in one nvcc call (kernels/build.py);
-  3. kernels  — each kernel against its plain PyTorch version at
-                mistral-nemo-12b's attention shapes (H=32, K=8, hd=128,
-                bt=16, B=8, ctx up to 512, C in {8, 64}) with ragged
-                lengths, -1 table entries, masked slots and a window:
-                bf16 within 2e-2, f32 (TF32 off) within 1e-4;
-  4. tiny     — one ragged trace through the tiny f32 engine twice, on the
-                card (kernels) and on the CPU (plain versions): identical
-                greedy tokens;
-  5. serve    — full-width 40-layer mistral-nemo-12b (random bf16 params
-                from a seed) serving 16 wire-encoded requests through
-                BatchServer (8 slots, max_len 512): every request drains,
-                logits stay finite, and each kernel launched exactly
-                40 x its chunk or decode ticks;
-  6. measure  — on inputs the main path itself produced, each kernel's
+  2. build    — all four kernels, one nvcc process per source
+                (kernels/build.py);
+  3. kernels  — each kernel against its plain PyTorch version: the
+                attention kernels at mistral-nemo-12b's shapes (H=32, K=8,
+                hd=128, bt=16, B=8, ctx up to 512, C in {8, 64}) with
+                ragged lengths, -1 table entries, masked slots and a
+                window; moe_gmm at granite's expert shapes (E=40, C in
+                {8, 512, 37}, D x F in {1536 x 512, 512 x 1536}), every
+                dim ragged (5, 130, 130, 130) and a zero-size case;
+                rao_scatter_add at granite's combine
+                shapes (D=1536, M in {320, 20480} random duplicates, and
+                CENTRAL: every update on one row).  Tolerance
+                |got - plain| <= tol + tol * |plain| with tol = 2e-2 in
+                bf16 and 1e-4 in f32 (TF32 off);
+  4. tiny     — one ragged trace through a tiny f32 dense engine and a
+                tiny f32 dropless MoE engine, each on the card (kernels)
+                and on the CPU (plain versions): identical greedy tokens;
+  5. serve    — full-width 40-layer mistral-nemo-12b, then (its params
+                freed) full-width 32-layer granite-moe-3b-a800m under
+                dropless routing, each with random bf16 params from a seed
+                serving 16 wire-encoded requests (prompt lengths 17-300,
+                32 new tokens) through BatchServer (8 slots, max_len 512):
+                every request drains, logits stay finite, and each kernel
+                launched exactly L x its chunk or decode ticks (moe_gmm
+                3 x L per tick, rao_scatter_add L per tick);
+  6. measure  — on inputs each main path itself produced, each kernel's
                 time beside its plain version's, one PyTorch library call
-                (scaled_dot_product_attention over the gathered dense KV,
-                never called by the port) and its bound at 3.35 TB/s and
+                that computes the same function (never called by the port:
+                scaled_dot_product_attention over the gathered dense KV,
+                torch.bmm, index_add_) and its bound at 3.35 TB/s and
                 989 TFLOP/s bf16.
 The line before the last is the kernels' JSON record; the last line is
 {"ok": true, "device": {...}}.  Without a card, or without the rest of
@@ -38,6 +52,8 @@ import statistics
 import subprocess
 import sys
 import time
+from contextlib import ExitStack
+from functools import partial
 from pathlib import Path
 
 import numpy as np
@@ -47,13 +63,14 @@ sys.path.insert(0, str(Path(__file__).resolve().parent / "src"))
 
 from repro_torch.configs import get_config, reduced  # noqa: E402
 from repro_torch.core import rpc as wire  # noqa: E402
+from repro_torch.device import H100_HBM_STREAM_GBs  # noqa: E402
 from repro_torch.kernels import build, ops, ref  # noqa: E402
 from repro_torch.models.model import build_model  # noqa: E402
 from repro_torch.runtime.server import (  # noqa: E402
     BatchServer, encode_request,
 )
 
-HBM_BYTES_PER_S = 3.35e12        # H100 SXM, published
+HBM_BYTES_PER_S = H100_HBM_STREAM_GBs * 1e9   # H100 SXM, published
 BF16_FLOPS = 989e12              # H100 SXM dense bf16 tensor peak
 KERNELS = {
     "paged_attention": dict(
@@ -62,7 +79,16 @@ KERNELS = {
     "paged_prefill_attention": dict(
         source="src/repro_torch/kernels/csrc/paged_prefill_attention.cu",
         replaces="src/repro/kernels/paged_prefill_attention.py:157"),
+    "moe_gmm": dict(
+        source="src/repro_torch/kernels/csrc/moe_gmm.cu",
+        replaces="src/repro/kernels/moe_gmm.py:62"),
+    "rao_scatter_add": dict(
+        source="src/repro_torch/kernels/csrc/rao_scatter.cu",
+        replaces="src/repro/kernels/rao_scatter.py:53"),
 }
+ATTENTION = ("paged_attention", "paged_prefill_attention")
+MOE = ("moe_gmm", "rao_scatter_add")
+DENSE_ARCH, MOE_ARCH = "mistral-nemo-12b", "granite-moe-3b-a800m"
 DEV = torch.device("cuda")
 SPIN_CYCLES = 20_000_000         # ~10 ms at the H100's ~2 GHz SM clock
 
@@ -103,7 +129,14 @@ def time_ms(fn, reps, flush=None):
 
 
 def max_err(a, b):
-    return float((a.float() - b.float()).abs().max())
+    return float((a.float() - b.float()).abs().max()) if a.numel() else 0.0
+
+
+def close(got, exp, tol):
+    """|got - exp| <= tol + tol * |exp| everywhere, and finite."""
+    g, e = got.float(), exp.float()
+    return bool(torch.isfinite(g).all()) and \
+        bool(((g - e).abs() <= tol + tol * e.abs()).all())
 
 
 # ------------------------------------------------------------ inputs
@@ -215,6 +248,70 @@ def phase_kernels(errs):
                     raise AssertionError(
                         f"paged_prefill_attention disagrees: {e}")
                 errs["paged_prefill_attention"].append(e)
+    check_moe_kernels(rng, errs)
+
+
+def check_moe_kernels(rng, errs):
+    """moe_gmm and rao_scatter_add against their plain versions at
+    granite's shapes (E = 40 experts, d_model 1536, d_ff_expert 512)."""
+    E, Dm, Fe = 40, 1536, 512
+
+    def rnd(shape, dtype, scale=1.0):
+        return torch.from_numpy(
+            (rng.randn(*shape) * scale).astype(np.float32)).to(DEV, dtype)
+    # granite's (C, D, F) at decode, a full chunk and a ragged chunk, for
+    # the gate/up and the down projection; then every dim ragged (D, F not
+    # multiples of 8: the unvectorised bf16 loads)
+    gmm_cases = [(E, C, D, F) for C in (8, 512, 37)
+                 for D, F in ((Dm, Fe), (Fe, Dm))] + [(5, 130, 130, 130)]
+    for dtype, tol in ((torch.bfloat16, 2e-2), (torch.float32, 1e-4)):
+        for Eg, C, D, F in gmm_cases:
+            xe = rnd((Eg, C, D), dtype)
+            w = rnd((Eg, D, F), dtype, 1 / np.sqrt(D))
+            before = ops.LAUNCHES["moe_gmm"]
+            got = ops.moe_gmm(xe, w)
+            exp = ref.moe_gmm(xe, w)
+            torch.cuda.synchronize()
+            e = max_err(got, exp)
+            ok = close(got, exp, tol) and got.shape == (Eg, C, F) and \
+                ops.LAUNCHES["moe_gmm"] == before + 1
+            k_ms = time_ms(lambda: ops.moe_gmm(xe, w), 5)
+            print(f"[kernels] moe_gmm {str(dtype)[6:]} ({Eg}, {C}, {D}) x "
+                  f"({Eg}, {D}, {F}): max_abs_err {e:.3g} (tol {tol} "
+                  f"abs + rel); kernel {k_ms:.4f} ms")
+            if not ok:
+                raise AssertionError(f"moe_gmm disagrees: {e}")
+            errs["moe_gmm"].append(e)
+        before = ops.LAUNCHES["moe_gmm"]
+        empty = ops.moe_gmm(rnd((E, 0, Dm), dtype), rnd((E, Dm, Fe), dtype))
+        if empty.shape != (E, 0, Fe) or \
+                ops.LAUNCHES["moe_gmm"] != before:
+            raise AssertionError("moe_gmm zero-size case launched or "
+                                 f"gave {tuple(empty.shape)}")
+        print(f"[kernels] moe_gmm {str(dtype)[6:]} zero-size ({E}, 0, {Dm}):"
+              f" empty {tuple(empty.shape)}, no launch")
+        for name, N, M in (("duplicates", 9, 320), ("duplicates", 513, 20480),
+                           ("CENTRAL", 513, 20480)):
+            if name == "CENTRAL":           # every update on row 0, ones
+                idx = torch.zeros(M, dtype=torch.int32, device=DEV)
+                vals = torch.ones((M, Dm), dtype=dtype, device=DEV)
+            else:
+                idx = torch.from_numpy(rng.randint(0, N, size=M)
+                                       .astype(np.int32)).to(DEV)
+                vals = rnd((M, Dm), dtype)
+            table = rnd((N, Dm), dtype)
+            exp = ref.rao_scatter_add(table, idx, vals)
+            before = ops.LAUNCHES["rao_scatter_add"]
+            got = ops.rao_scatter_add(table, idx, vals)
+            torch.cuda.synchronize()
+            e = max_err(got, exp)
+            ok = close(got, exp, tol) and got is table and \
+                ops.LAUNCHES["rao_scatter_add"] == before + 1
+            print(f"[kernels] rao_scatter_add {str(dtype)[6:]} {name} N {N} "
+                  f"M {M} D {Dm}: max_abs_err {e:.3g} (tol {tol} abs + rel)")
+            if not ok:
+                raise AssertionError(f"rao_scatter_add disagrees: {e}")
+            errs["rao_scatter_add"].append(e)
 
 
 def tiny_trace(vocab):
@@ -234,34 +331,46 @@ def drain_outputs(srv, trace):
     return out
 
 
+TINY = dict(n_layers=2, d_model=32, n_heads=2, n_kv_heads=2, head_dim=16,
+            d_ff=64, vocab=128, param_dtype="float32", cache_dtype="float32")
+
+
 @phase("tiny")
 def phase_tiny():
-    """The tiny f32 engine on the card (kernels) and on the CPU (plain)."""
-    cfg = reduced(get_config("mistral-nemo-12b")).replace(
-        n_layers=2, d_model=32, n_heads=2, n_kv_heads=2, head_dim=16,
-        d_ff=64, vocab=128, param_dtype="float32", cache_dtype="float32")
-    model = build_model(cfg)
-    params = model.init(torch.Generator().manual_seed(3), "cpu")
-    trace = tiny_trace(cfg.vocab)
-    outs = {}
-    for dev in ("cpu", "cuda"):
-        p = params if dev == "cpu" else _tree_to(params, DEV)
-        before = dict(ops.LAUNCHES)
-        srv = BatchServer(model, batch_slots=3, max_len=32, params=p,
-                          device=dev, nic_cost=None)
-        outs[dev] = drain_outputs(srv, trace)
-        launched = {k: ops.LAUNCHES[k] - before[k] for k in before}
-        if srv.kv_stats()["paged"]["pages_in_use"]:
-            raise AssertionError(f"{dev}: pages leaked")
-        if dev == "cuda" and not all(launched.values()):
-            raise AssertionError(f"tiny engine skipped a kernel: {launched}")
-        if dev == "cpu" and any(launched.values()):
-            raise AssertionError("the CPU engine launched a kernel")
-    same = outs["cpu"] == outs["cuda"]
-    print(f"[tiny] {len(outs['cuda'])} requests; greedy tokens identical "
-          f"card vs CPU: {same}")
-    if not same:
-        raise AssertionError(f"tiny engine tokens differ:\n{outs}")
+    """Tiny f32 engines on the card (kernels) and on the CPU (plain): the
+    dense one, then a dropless MoE one (8 experts, top-2)."""
+    engines = (
+        (DENSE_ARCH, reduced(get_config(DENSE_ARCH)).replace(**TINY),
+         ATTENTION),
+        (MOE_ARCH, reduced(get_config(MOE_ARCH)).replace(
+            moe_routing="dropless", **TINY), ATTENTION + MOE),
+    )
+    for arch, cfg, kernels in engines:
+        model = build_model(cfg)
+        params = model.init(torch.Generator().manual_seed(3), "cpu")
+        trace = tiny_trace(cfg.vocab)
+        outs = {}
+        for dev in ("cpu", "cuda"):
+            p = params if dev == "cpu" else _tree_to(params, DEV)
+            before = dict(ops.LAUNCHES)
+            srv = BatchServer(model, batch_slots=3, max_len=32, params=p,
+                              device=dev, nic_cost=None)
+            outs[dev] = drain_outputs(srv, trace)
+            launched = {k: ops.LAUNCHES[k] - before[k] for k in before}
+            if srv.kv_stats()["paged"]["pages_in_use"]:
+                raise AssertionError(f"{arch} {dev}: pages leaked")
+            if dev == "cuda" and not all(launched[k] for k in kernels):
+                raise AssertionError(f"tiny {arch} skipped a kernel: "
+                                     f"{launched}")
+            if dev == "cpu" and any(launched.values()):
+                raise AssertionError(f"the CPU {arch} engine launched a "
+                                     f"kernel")
+        same = outs["cpu"] == outs["cuda"]
+        print(f"[tiny] {arch} ({cfg.family}): {len(outs['cuda'])} requests;"
+              f" greedy tokens identical card vs CPU: {same}")
+        if not same:
+            raise AssertionError(f"tiny {arch} engine tokens differ:\n"
+                                 f"{outs}")
 
 
 def _tree_to(tree, dev):
@@ -294,22 +403,47 @@ class Recorder:
         setattr(ops, self.name, self.fn)
 
 
+def serve_config(arch):
+    """The full-width config served on the card; moe archs under dropless
+    routing, as launch.serve serves them."""
+    cfg = get_config(arch)
+    return cfg.replace(moe_routing="dropless") if cfg.family == "moe" \
+        else cfg
+
+
+def expected_launches(cfg, st):
+    """Each kernel's launches on the main path, from the engine's ticks."""
+    L, chunks, decodes = cfg.n_layers, st["prefill_chunks"], \
+        st["decode_steps"]
+    exp = {"paged_prefill_attention": L * chunks,
+           "paged_attention": L * decodes,
+           "moe_gmm": 0, "rao_scatter_add": 0}
+    if cfg.family == "moe":
+        exp["moe_gmm"] = 3 * L * (chunks + decodes)
+        exp["rao_scatter_add"] = L * (chunks + decodes)
+    return exp
+
+
 @phase("serve")
-def phase_serve(seed=0):
-    cfg = get_config("mistral-nemo-12b")
+def phase_serve(arch, seed=0):
+    cfg = serve_config(arch)
     model = build_model(cfg)
     torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
     params = model.init(torch.Generator(device=DEV).manual_seed(seed), DEV)
     torch.cuda.synchronize()
     n_params = sum(t.numel() for t in _leaves(params))
+    ffn = (f"{cfg.n_experts} experts top-{cfg.top_k} d_ff_expert "
+           f"{cfg.d_ff_expert} ({cfg.moe_routing})"
+           if cfg.family == "moe" else f"d_ff {cfg.d_ff}")
     print(f"[serve] {cfg.name}: {cfg.n_layers} layers, d_model "
           f"{cfg.d_model}, heads {cfg.n_heads}/{cfg.n_kv_heads}, hd "
-          f"{cfg.head_dim}, d_ff {cfg.d_ff}, vocab {cfg.vocab}; "
+          f"{cfg.head_dim}, {ffn}, vocab {cfg.vocab}; "
           f"{n_params / 1e9:.2f} B bf16 params initialised in "
           f"{time.perf_counter() - t0:.1f} s")
     srv = BatchServer(model, batch_slots=8, max_len=512, block_tokens=16,
                       params=params, device=DEV, sync_timers=True)
+    del params
     rng = np.random.RandomState(seed)
     plens = rng.randint(17, 301, size=16)
     for i, n in enumerate(plens):
@@ -330,36 +464,44 @@ def phase_serve(seed=0):
         return lg, pg
     srv._paged_decode, srv._chunk_prefill = decode_checked, chunk_checked
 
-    recs = {}
+    # record layer 0's call of each kernel in every tick (moe_gmm: its
+    # first projection, the gate)
+    periods = {"paged_attention": cfg.n_layers,
+               "paged_prefill_attention": cfg.n_layers}
+    if cfg.family == "moe":
+        periods.update(moe_gmm=3 * cfg.n_layers,
+                       rao_scatter_add=cfg.n_layers)
+    recorders = [Recorder(name, n) for name, n in periods.items()]
     torch.cuda.synchronize()
     ops.reset_launches()
     t0 = time.perf_counter()
-    with Recorder("paged_attention", cfg.n_layers) as rd, \
-            Recorder("paged_prefill_attention", cfg.n_layers) as rp:
+    with ExitStack() as stack:
+        for r in recorders:
+            stack.enter_context(r)
         bufs = srv.run_until_drained()
         torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     launches = dict(ops.LAUNCHES)
-    recs["paged_attention"] = rd.calls
-    recs["paged_prefill_attention"] = rp.calls
+    recs = {r.name: r.calls for r in recorders}
     st = srv.stats
     outs = {}
     for buf in bufs:
         msg = wire.decode(buf, {1: "int", 2: "bytes"})
         outs[msg[1]] = np.frombuffer(msg[2], np.int32).tolist()
     peak = torch.cuda.max_memory_allocated() / 2**30
-    print(f"[serve] {len(outs)}/16 drained, {st['failed']} failed, "
-          f"{st['ticks']} ticks ({st['prefill_chunks']} chunk ticks, "
-          f"{st['decode_steps']} decode ticks) in {wall:.2f} s")
+    print(f"[serve] {cfg.name}: {len(outs)}/16 drained, {st['failed']} "
+          f"failed, {st['ticks']} ticks ({st['prefill_chunks']} chunk ticks,"
+          f" {st['decode_steps']} decode ticks) in {wall:.2f} s; peak memory"
+          f" {peak:.2f} GiB")
     prompt_toks = int(plens.sum())
-    print(f"[serve] prefill {prompt_toks} tokens in {st['splice_wall_s']:.3f}"
-          f" s = {prompt_toks / st['splice_wall_s']:.1f} tok/s; decode "
-          f"{st['decode_tokens']} tokens in {st['decode_wall_s']:.3f} s = "
-          f"{st['decode_tokens'] / st['decode_wall_s']:.1f} tok/s; peak "
-          f"memory {peak:.2f} GiB")
-    print(f"[serve] launches {launches}; expected paged_prefill_attention "
-          f"{cfg.n_layers * st['prefill_chunks']}, paged_attention "
-          f"{cfg.n_layers * st['decode_steps']}")
+    print(f"[serve] {cfg.name} prefill: {prompt_toks} tokens in "
+          f"{st['splice_wall_s']:.3f} s = "
+          f"{prompt_toks / st['splice_wall_s']:.1f} tok/s")
+    print(f"[serve] {cfg.name} decode: {st['decode_tokens']} tokens in "
+          f"{st['decode_wall_s']:.3f} s = "
+          f"{st['decode_tokens'] / st['decode_wall_s']:.1f} tok/s")
+    expected = expected_launches(cfg, st)
+    print(f"[serve] {cfg.name} launches {launches}; expected {expected}")
     if len(outs) != 16 or st["failed"] or \
             any(len(v) != 32 for v in outs.values()):
         raise AssertionError(f"requests not drained: {st}")
@@ -367,11 +509,9 @@ def phase_serve(seed=0):
         raise AssertionError("pages leaked")
     if not bool(torch.stack(finite).all()):
         raise AssertionError("non-finite logits on the main path")
-    if launches["paged_prefill_attention"] != \
-            cfg.n_layers * st["prefill_chunks"] or \
-            launches["paged_attention"] != cfg.n_layers * st["decode_steps"] \
-            or not all(launches.values()):
-        raise AssertionError(f"launch counts do not match ticks: {launches}")
+    if launches != expected or not all(launches[k] for k in periods):
+        raise AssertionError(f"launch counts do not match ticks: "
+                             f"{launches} vs {expected}")
     return launches, recs, srv
 
 
@@ -463,7 +603,8 @@ def phase_measure(recs, errs):
     flush = torch.empty(256 << 20, dtype=torch.uint8, device=DEV)
     out = {}
     sdpa = torch.nn.functional.scaled_dot_product_attention
-    for name, calls in recs.items():
+    for name in ATTENTION:
+        calls = recs[name]
         best, best_w = None, -1
         for args, kw in calls:
             q, kp, vp, btab, lens, kn, vn = args
@@ -509,11 +650,105 @@ def phase_measure(recs, errs):
     return out
 
 
+def gmm_work(xe, w):
+    """Bytes and flops of one moe_gmm call, the dispatch padding rows
+    counted as the kernel computes them."""
+    E, C, D = xe.shape
+    F = w.shape[2]
+    return (E * C * D + E * D * F + E * C * F) * xe.element_size(), \
+        2 * E * C * D * F
+
+
+def rao_work(table, idx, vals):
+    """Bytes and adds of one rao_scatter_add call: vals and idx read
+    once, the table read and written once."""
+    N, D = table.shape
+    M = idx.shape[0]
+    es = table.element_size()
+    return M * D * es + 4 * M + 2 * N * D * es, M * D
+
+
+@phase("measure")
+def phase_measure_moe(recs, errs):
+    """Time moe_gmm and rao_scatter_add on the granite path's own inputs
+    (layer 0's call in a decode tick and in the tick with the most work;
+    the record keeps the latter), cold L2."""
+    flush = torch.empty(256 << 20, dtype=torch.uint8, device=DEV)
+    out = {}
+    for name in MOE:
+        calls = recs[name]
+        if name == "moe_gmm":
+            sized = sorted(calls, key=lambda c: gmm_work(*c[0])[1])
+        else:
+            sized = sorted(calls, key=lambda c: rao_work(*c[0])[1])
+        for label, (args, _) in (("decode", sized[0]), ("max", sized[-1])):
+            if name == "moe_gmm":
+                xe, w = args
+                nbytes, flops = gmm_work(xe, w)
+                exp = ref.moe_gmm(xe, w)
+                got = ops.moe_gmm(xe, w)
+                lib = torch.bmm(xe, w)
+                shape = f"{tuple(xe.shape)} x {tuple(w.shape)}"
+                run = partial(ops.moe_gmm, xe, w)
+                plain = partial(ref.moe_gmm, xe, w)
+                library = partial(torch.bmm, xe, w)
+            else:
+                table, idx, vals = args
+                nbytes, flops = rao_work(table, idx, vals)
+                zero = torch.zeros_like(table)        # the path's input
+                exp = ref.rao_scatter_add(zero, idx, vals)
+                got = ops.rao_scatter_add(zero.clone(), idx, vals)
+                lib = zero.clone().index_add_(0, idx, vals)
+                shape = (f"table {tuple(table.shape)} idx {tuple(idx.shape)}"
+                         f" vals {tuple(vals.shape)}")
+                # the kernel and index_add_ accumulate into copies in place
+                run = partial(ops.rao_scatter_add, zero.clone(), idx, vals)
+                plain = partial(ref.rao_scatter_add, zero, idx, vals)
+                library = partial(zero.clone().index_add_, 0, idx, vals)
+            torch.cuda.synchronize()
+            err = max_err(got, exp)
+            if not close(got, exp, 2e-2):
+                raise AssertionError(f"{name} disagrees on main-path inputs:"
+                                     f" {err}")
+            errs[name].append(err)
+            lib_err = max_err(lib, exp)
+            k_ms = time_ms(run, 20, flush)
+            p_ms = time_ms(plain, 5, flush)
+            l_ms = time_ms(library, 20, flush)
+            t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+            t_ops = flops / BF16_FLOPS * 1e3
+            bound = max(t_bytes, t_ops)
+            lib_name = "bmm" if name == "moe_gmm" else "index_add_"
+            print(f"[measure] {name} ({label} tick) on main-path inputs "
+                  f"{shape}: kernel {k_ms:.4f} ms, plain {p_ms:.4f} ms, "
+                  f"{lib_name} {l_ms:.4f} ms ({lib_name} vs plain "
+                  f"max_abs_err {lib_err:.3g}); bound {bound:.4f} ms "
+                  f"({nbytes} bytes -> {t_bytes:.4f} ms, {flops} ops -> "
+                  f"{t_ops:.4f} ms); max_abs_err {err:.3g}")
+            if label == "max":
+                out[name] = dict(ms=k_ms, plain_ms=p_ms, library_ms=l_ms,
+                                 bound_ms=float(bound),
+                                 bound_by="bytes" if t_bytes >= t_ops
+                                 else "operations")
+    return out
+
+
 def _device_us(evt):
     for attr in ("self_device_time_total", "self_cuda_time_total"):
         if hasattr(evt, attr):
             return float(getattr(evt, attr))
     return 0.0
+
+
+# device kernels by name: ours (attention, moe_gmm, the rao kernels) and
+# cuBLAS's matmuls
+PROFILE_PARTS = (
+    ("paged attention", ("paged",)),
+    ("moe_gmm", ("moe_gmm",)),
+    ("rao_scatter_add", ("scatter_add_kernel", "widen_kernel",
+                         "narrow_kernel")),
+    ("cuBLAS gemm", ("gemm", "xmma", "cutlass", "nvjet")),
+)
 
 
 @phase("profile")
@@ -544,14 +779,16 @@ def phase_profile(srv, seed=1):
         kern = [e for e in prof.key_averages()
                 if "cuda" in str(e.device_type).lower() and _device_us(e)]
         busy = sum(_device_us(e) for e in kern) / 1e3
-        attn = sum(_device_us(e) for e in kern if "paged" in e.key) / 1e3
-        gemm = sum(_device_us(e) for e in kern
-                   if any(w in e.key.lower() for w in
-                          ("gemm", "xmma", "cutlass", "nvjet"))) / 1e3
-        print(f"[profile] {label} x{ticks}: wall {wall:.3f} ms, device "
-              f"busy {busy:.3f} ms ({busy / wall:.1%}), idle "
-              f"{1 - busy / wall:.1%}; paged attention {attn:.3f} ms, "
-              f"gemm {gemm:.3f} ms, other {busy - attn - gemm:.3f} ms")
+        parts = {}
+        for part, words in PROFILE_PARTS:
+            parts[part] = sum(_device_us(e) for e in kern
+                              if any(w in e.key.lower() for w in words)) / 1e3
+        other = busy - sum(parts.values())
+        print(f"[profile] {srv.model.cfg.name} {label} x{ticks}: wall "
+              f"{wall:.3f} ms, device busy {busy:.3f} ms "
+              f"({busy / wall:.1%}), idle {1 - busy / wall:.1%}; "
+              + ", ".join(f"{k} {v:.3f} ms" for k, v in parts.items())
+              + f", other {other:.3f} ms")
         for e in sorted(kern, key=_device_us, reverse=True)[:8]:
             print(f"[profile]   {_device_us(e) / 1e3:9.3f} ms x{e.count:<5d} "
                   f"{e.key[:90]}")
@@ -565,7 +802,7 @@ def main(argv=None):
                          "result line")
     ap.add_argument("--profile", action="store_true",
                     help="also trace one chunk tick and three decode ticks "
-                         "of the full-width engine with torch.profiler")
+                         "of each full-width engine with torch.profiler")
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False; this script "
@@ -579,14 +816,22 @@ def main(argv=None):
     if args.quick:
         return 0
     phase_tiny()
-    launches, recs, srv = phase_serve()
+    launches, recs, srv = phase_serve(DENSE_ARCH)
     meas = phase_measure(recs, errs)
     if args.profile:
         phase_profile(srv)
+    del srv, recs                      # free mistral's 24.5 GB of params
+    torch.cuda.empty_cache()
+    moe_launches, recs, srv = phase_serve(MOE_ARCH)
+    meas.update(phase_measure_moe(recs, errs))
+    if args.profile:
+        phase_profile(srv)
+    by_path = {DENSE_ARCH: launches, MOE_ARCH: moe_launches}
     record = {"kernels": [
         dict(name=name, route="cuda", **KERNELS[name],
-             launches=launches[name], max_abs_err=max(errs[name]),
-             **meas[name])
+             launches=sum(n[name] for n in by_path.values()),
+             launches_by_path={a: n[name] for a, n in by_path.items()},
+             max_abs_err=max(errs[name]), **meas[name])
         for name in KERNELS]}
     print(f"[total] wall {time.perf_counter() - t_all:.1f} s")
     print(json.dumps(record))

@@ -9,7 +9,9 @@ from repro_torch.configs.base import (  # noqa: F401
 )
 
 ARCH_MODULES = [
-    # the dense paged serving path; the other archs join with their slices
+    # the archs of the ported serving paths; the others join with their
+    # slices
+    "granite_moe_3b_a800m",
     "mistral_nemo_12b",
 ]
 

@@ -17,10 +17,10 @@ from typing import Dict, List
 
 from repro_torch.simcxl.params import FPGA_400MHZ, SimCXLParams
 
-# A TPU's HBM (16 GiB at 819 GB/s): the defaults for a CPU run only.  On a
-# CUDA device the serving engine passes the card's own capacity
+# The reference package's defaults (16 GiB at 819 GB/s), for a CPU run
+# only.  On a CUDA device the serving engine passes the card's own capacity
 # (``torch.cuda.get_device_properties(dev).total_memory``) as
-# ``hbm_budget`` instead (runtime.server._device_hbm_bytes).
+# ``hbm_budget`` instead (``repro_torch.device.device_hbm_bytes``).
 HBM_BYTES = 16 << 30
 HBM_BW = 819e9
 

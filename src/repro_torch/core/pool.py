@@ -44,8 +44,9 @@ class Allocation:
 class CoherentMemoryPool:
     """Unified, coherent, tiered memory pool with page auto-migration."""
 
-    # hbm_bytes defaults to a TPU's 16 GiB (CPU runs); the serving engine
-    # passes the CUDA card's capacity (runtime.server._device_hbm_bytes)
+    # hbm_bytes and the hbm tier's stream rate default to the reference
+    # package's values (CPU runs); on a CUDA card the serving engine sets
+    # the card's capacity and stream rate (repro_torch.device)
     def __init__(self, *, hbm_bytes: int = 16 << 30,
                  host_bytes: int = 256 << 30,
                  cxl_bytes: int = 512 << 30,

@@ -10,6 +10,10 @@ from typing import Optional, Union
 
 import torch
 
+# NVIDIA H100 SXM's published HBM3 stream rate (3.35 TB/s): the card the
+# port's kernels are built for (sm_90a)
+H100_HBM_STREAM_GBs = 3350.0
+
 
 def resolve_device(device: Optional[Union[str, torch.device]] = None
                    ) -> torch.device:

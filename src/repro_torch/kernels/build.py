@@ -1,9 +1,11 @@
 """Build and load the hand-written CUDA kernels.
 
-Both attention kernels (``csrc/paged_attention.cu``,
-``csrc/paged_prefill_attention.cu``) compile in ONE ``nvcc`` call into a
-shared library with a plain C interface, loaded with ``ctypes`` — no
-PyTorch headers, so the build takes seconds, not minutes.  The library
+Every kernel source (``csrc/paged_attention.cu``,
+``csrc/paged_prefill_attention.cu``, ``csrc/moe_gmm.cu``,
+``csrc/rao_scatter.cu``) compiles in its own ``nvcc`` process, all
+started together, and one more ``nvcc`` call links the objects into a
+single shared library with a plain C interface, loaded with ``ctypes`` —
+no PyTorch headers, so the build takes seconds, not minutes.  The library
 lands in ``kernels/_build/`` (listed in ``.gitignore``; override with
 ``REPRO_TORCH_BUILD_DIR``) under a name keyed by a hash of the sources and
 flags, so an unchanged tree reuses it and a changed one rebuilds.
@@ -21,14 +23,14 @@ import subprocess
 import tempfile
 import time
 from pathlib import Path
-from typing import List, Optional
+from typing import Optional
 
 CSRC = Path(__file__).resolve().parent / "csrc"
-SOURCES = ("paged_attention.cu", "paged_prefill_attention.cu")
+SOURCES = ("paged_attention.cu", "paged_prefill_attention.cu", "moe_gmm.cu",
+           "rao_scatter.cu")
 HEADERS = ("paged_common.cuh",)
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
-              "-O3", "-shared", "-Xcompiler", "-fPIC", "-lineinfo",
-              "-Xptxas", "-v")
+              "-O3", "-Xcompiler", "-fPIC", "-lineinfo", "-Xptxas", "-v")
 
 _lib: Optional[ctypes.CDLL] = None
 # what the last build printed (ptxas register / spill lines) and how long
@@ -64,19 +66,31 @@ def _digest() -> str:
 
 
 def _compile(out: Path) -> str:
-    """One nvcc call for every source; the library appears atomically."""
+    """One nvcc process per source, run in parallel, then one link; the
+    library appears atomically."""
     out.parent.mkdir(parents=True, exist_ok=True)
-    fd, tmp = tempfile.mkstemp(suffix=".so", dir=out.parent)
-    os.close(fd)
-    cmd: List[str] = [_nvcc(), *NVCC_FLAGS, "-o", tmp,
-                      *(str(CSRC / s) for s in SOURCES)]
-    proc = subprocess.run(cmd, capture_output=True, text=True)
-    if proc.returncode != 0:
-        os.unlink(tmp)
-        raise RuntimeError(f"nvcc failed ({proc.returncode}):\n"
-                           f"{' '.join(cmd)}\n{proc.stdout}{proc.stderr}")
-    os.replace(tmp, out)
-    return proc.stdout + proc.stderr
+    nvcc = _nvcc()
+    with tempfile.TemporaryDirectory(dir=out.parent) as tmpdir:
+        objs = [Path(tmpdir) / f"{Path(s).stem}.o" for s in SOURCES]
+        cmds = [[nvcc, *NVCC_FLAGS, "-c", "-o", str(o), str(CSRC / s)]
+                for s, o in zip(SOURCES, objs)]
+        procs = [subprocess.Popen(c, stdout=subprocess.PIPE,
+                                  stderr=subprocess.STDOUT, text=True)
+                 for c in cmds]
+        logs = [p.communicate()[0] for p in procs]
+        for cmd, proc, log in zip(cmds, procs, logs):
+            if proc.returncode != 0:
+                raise RuntimeError(f"nvcc failed ({proc.returncode}):\n"
+                                   f"{' '.join(cmd)}\n{log}")
+        tmp = Path(tmpdir) / out.name
+        link = [nvcc, "-shared", "-o", str(tmp), *map(str, objs)]
+        proc = subprocess.run(link, capture_output=True, text=True)
+        if proc.returncode != 0:
+            raise RuntimeError(f"nvcc link failed ({proc.returncode}):\n"
+                               f"{' '.join(link)}\n{proc.stdout}"
+                               f"{proc.stderr}")
+        os.replace(tmp, out)
+    return "".join(logs) + proc.stdout + proc.stderr
 
 
 def _bind(lib: ctypes.CDLL) -> ctypes.CDLL:
@@ -89,6 +103,12 @@ def _bind(lib: ctypes.CDLL) -> ctypes.CDLL:
         i, p, p, p, p, p, p, p, p,            # dtype, q .. out
         i, i, i, i, i, i, i, i, f, p]         # B C H K hd bt nb window scale stream
     lib.paged_prefill_attention_launch.restype = i
+    lib.moe_gmm_launch.argtypes = [i, p, p, p, i, i, i, i, p]
+    #                              dtype xe w out E C D F stream
+    lib.moe_gmm_launch.restype = i
+    lib.rao_scatter_add_launch.argtypes = [i, p, p, p, p, i, i, i, p]
+    #                          dtype table idx vals scratch N M D stream
+    lib.rao_scatter_add_launch.restype = i
     return lib
 
 
@@ -96,7 +116,7 @@ def load() -> ctypes.CDLL:
     """The kernel library, built from ``csrc/`` on first use."""
     global _lib, build_log, build_seconds
     if _lib is None:
-        out = build_dir() / f"libpaged_attention_{_digest()}.so"
+        out = build_dir() / f"librepro_kernels_{_digest()}.so"
         if not out.exists():
             t0 = time.perf_counter()
             build_log = _compile(out)

@@ -1,4 +1,6 @@
-"""Public wrappers for the paged attention kernels.
+"""Public wrappers for the hand-written kernels: paged decode and
+chunked-prefill attention, the grouped expert matmul and the RAO
+scatter-add.
 
 One wrapper per kernel.  The device of the inputs picks the path, and
 nothing else does:
@@ -21,7 +23,8 @@ import torch
 from repro_torch.kernels import build, ref
 
 LAUNCHES: Dict[str, int] = {"paged_attention": 0,
-                            "paged_prefill_attention": 0}
+                            "paged_prefill_attention": 0,
+                            "moe_gmm": 0, "rao_scatter_add": 0}
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 MAX_HEAD_DIM = 256
 MAX_GROUP = 32          # query heads per kv head: one CTA's softmax rows
@@ -154,3 +157,88 @@ def paged_prefill_attention(q, k_pages, v_pages, block_tables, ctx_lens,
                            f"CUDA error {rc}")
     LAUNCHES["paged_prefill_attention"] += 1
     return out
+
+
+def moe_gmm(xe, w):
+    """Grouped expert matmul: xe (E, C, D) @ w (E, D, F) -> (E, C, F) per
+    expert, summed in f32, in ``xe.dtype`` (float32 or bfloat16; w of the
+    same dtype).  Any C, D and F; a zero-size operand gives the empty (or
+    all-zero) result without a launch.  See ``kernels.ref.moe_gmm``."""
+    if xe.device.type == "cpu":
+        return ref.moe_gmm(xe, w)
+    if xe.device.type != "cuda":
+        raise ValueError(f"moe_gmm: no kernel for {xe.device}")
+    if w.device != xe.device:
+        raise ValueError(f"moe_gmm: w on {w.device}, xe on {xe.device}")
+    if xe.dtype not in _DTYPES or w.dtype != xe.dtype:
+        raise TypeError(f"moe_gmm: dtypes {xe.dtype} / {w.dtype} "
+                        f"unsupported (both float32 or both bfloat16)")
+    if xe.dim() != 3 or w.dim() != 3 or w.shape[0] != xe.shape[0] \
+            or w.shape[1] != xe.shape[2]:
+        raise ValueError(f"moe_gmm: shapes {tuple(xe.shape)} x "
+                         f"{tuple(w.shape)} are not (E, C, D) x (E, D, F)")
+    if not (xe.is_contiguous() and w.is_contiguous()):
+        raise ValueError("moe_gmm: xe and w must be contiguous")
+    E, C, D = xe.shape
+    F = w.shape[2]
+    if 0 in (E, C, D, F):
+        return torch.zeros((E, C, F), dtype=xe.dtype, device=xe.device)
+    out = torch.empty((E, C, F), dtype=xe.dtype, device=xe.device)
+    rc = build.load().moe_gmm_launch(
+        _DTYPES[xe.dtype], xe.data_ptr(), w.data_ptr(), out.data_ptr(),
+        E, C, D, F, _stream_ptr(xe.device))
+    if rc:
+        raise RuntimeError(f"moe_gmm kernel launch failed: CUDA error {rc}")
+    LAUNCHES["moe_gmm"] += 1
+    return out
+
+
+def rao_scatter_add(table, idx, vals):
+    """RAO fetch-and-add over rows: ``table`` (N, D) plus ``vals`` (M, D)
+    at rows ``idx`` (M,) int32, duplicates summed, in ``table.dtype``
+    (float32 or bfloat16; vals of the same dtype).  Use the returned
+    table: on the card it is ``table`` itself, updated in place (as the
+    TPU kernel aliases its table); on the CPU a new tensor.  Row ids
+    outside [0, N) are dropped on the card.  See
+    ``kernels.ref.rao_scatter_add``."""
+    if table.device.type == "cpu":
+        return ref.rao_scatter_add(table, idx, vals)
+    if table.device.type != "cuda":
+        raise ValueError(f"rao_scatter_add: no kernel for {table.device}")
+    for name, t in (("idx", idx), ("vals", vals)):
+        if t.device != table.device:
+            raise ValueError(f"rao_scatter_add: {name} on {t.device}, "
+                             f"table on {table.device}")
+    if table.dtype not in _DTYPES or vals.dtype != table.dtype:
+        raise TypeError(f"rao_scatter_add: dtypes {table.dtype} / "
+                        f"{vals.dtype} unsupported (both float32 or both "
+                        f"bfloat16)")
+    if idx.dtype != torch.int32:
+        raise TypeError(f"rao_scatter_add: idx must be int32, got "
+                        f"{idx.dtype}")
+    if table.dim() != 2 or idx.dim() != 1 or vals.dim() != 2 \
+            or vals.shape != (idx.shape[0], table.shape[1]):
+        raise ValueError(f"rao_scatter_add: shapes table "
+                         f"{tuple(table.shape)}, idx {tuple(idx.shape)}, "
+                         f"vals {tuple(vals.shape)} are not (N, D), (M,), "
+                         f"(M, D)")
+    if not (table.is_contiguous() and idx.is_contiguous()
+            and vals.is_contiguous()):
+        raise ValueError("rao_scatter_add: table, idx and vals must be "
+                         "contiguous")
+    N, D = table.shape
+    M = idx.shape[0]
+    if 0 in (N, M, D):
+        return table
+    # a bf16 table accumulates in an f32 scratch and is rounded once
+    scratch = torch.empty((N, D), dtype=torch.float32, device=table.device) \
+        if table.dtype == torch.bfloat16 else None
+    rc = build.load().rao_scatter_add_launch(
+        _DTYPES[table.dtype], table.data_ptr(), idx.data_ptr(),
+        vals.data_ptr(), None if scratch is None else scratch.data_ptr(),
+        N, M, D, _stream_ptr(table.device))
+    if rc:
+        raise RuntimeError(f"rao_scatter_add kernel launch failed: CUDA "
+                           f"error {rc}")
+    LAUNCHES["rao_scatter_add"] += 1
+    return table

@@ -1,10 +1,12 @@
-"""Plain PyTorch versions of the paged attention kernels.
+"""Plain PyTorch versions of the hand-written kernels.
 
-Line for line with the jnp oracles of ``repro/kernels/ref.py``: dense
-gather of the block-table pages, f32 scores and softmax, output in
-``q.dtype``.  The CPU path of ``kernels.ops`` and the kernel-vs-plain
-comparison in ``chip_smoke.py`` use these; the serving path on a card
-never does.
+Line for line with the jnp oracles of ``repro/kernels/ref.py``: for the
+paged attention kernels a dense gather of the block-table pages, f32
+scores and softmax, output in ``q.dtype``; for ``moe_gmm`` an f32 einsum
+cast to ``xe.dtype``; for ``rao_scatter_add`` an accumulating index put
+in f32, cast to the table's dtype.  The CPU path of ``kernels.ops`` and
+the kernel-vs-plain comparison in ``chip_smoke.py`` use these; the
+serving path on a card never does.
 """
 from __future__ import annotations
 
@@ -105,3 +107,21 @@ def paged_prefill_attention(q, k_pages, v_pages, block_tables, ctx_lens,
     out = out + torch.einsum("bkgcu,bukd->bckgd", w[..., nb * bt:],
                              v_new.float())
     return out.reshape(B, C, H, hd).to(q.dtype)
+
+
+def moe_gmm(xe, w):
+    """Grouped expert matmul.  xe: (E, C, D), w: (E, D, F) -> (E, C, F),
+    summed in f32 and cast to ``xe.dtype``."""
+    return torch.einsum("ecd,edf->ecf", xe.float(), w.float()).to(xe.dtype)
+
+
+def rao_scatter_add(table, idx, vals):
+    """Atomic scatter-accumulate (RAO FAA over rows): a copy of ``table``
+    (N, D) with ``vals`` (M, D) added at rows ``idx`` (M,), duplicates
+    summed, in ``table.dtype``.  Each row is summed in f32 and rounded to
+    ``table.dtype`` once, as ``moe_gmm`` sums in f32: a bf16 sum rounded
+    at every add would depend on the order of the adds, which neither
+    the TPU kernel nor the CUDA one fixes the same way."""
+    acc = table.to(torch.float32, copy=True)
+    return acc.index_put_((idx.long(),), vals.float(),
+                          accumulate=True).to(table.dtype)

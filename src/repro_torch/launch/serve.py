@@ -2,7 +2,8 @@
 the port's paged KV engine.
 
 ``python -m repro_torch.launch.serve --requests 8`` serves a reduced
-mistral-nemo-12b, as the JAX launcher does, on the CUDA card
+mistral-nemo-12b (``--arch granite-moe-3b-a800m``: a reduced granite MoE,
+dropless routing), as the JAX launcher does, on the CUDA card
 (``--device cpu`` for the plain PyTorch path), submits wire-encoded
 requests, drains them through chunked prefill and batched paged decode,
 and reports tokens, scheduler stats and the SimCXL-projected CXL-NIC vs
@@ -52,8 +53,6 @@ def _refuse_unported(ap, args):
          "disaggregated serving (other paged engine planes)"),
         (args.prefill_slots is not None, "--prefill-slots",
          "disaggregated serving (other paged engine planes)"),
-        (args.moe_routing != "auto", "--moe-routing",
-         "MoE on the paged plane"),
     ]
     for bad, opt, where in checks:
         if bad:
@@ -94,7 +93,9 @@ def main(argv=None):
     ap.add_argument("--disagg", action="store_true")
     ap.add_argument("--prefill-slots", type=int, default=None)
     ap.add_argument("--moe-routing", default="auto",
-                    choices=("auto", "dropless", "capacity"))
+                    choices=("auto", "dropless", "capacity"),
+                    help="moe archs: auto/dropless (chunked prefill); "
+                         "capacity needs one-shot prefill, not ported")
     args = ap.parse_args(argv)
 
     _refuse_unported(ap, args)
@@ -107,6 +108,18 @@ def main(argv=None):
                  f"{args.shared_prefix_len}")
 
     cfg = reduced(get_config(args.arch))
+    if cfg.family == "moe":
+        # serving default: dropless routing, so moe joins the chunked
+        # bucketed prefill pipeline; capacity routing needs the one-shot
+        # plane, which is not ported
+        if args.moe_routing == "capacity":
+            ap.error("--moe-routing capacity is not ported yet: it comes "
+                     "with the port's slice for one-shot prefill (other "
+                     "paged engine planes)")
+        cfg = cfg.replace(moe_routing="dropless")
+    elif args.moe_routing != "auto":
+        ap.error(f"--moe-routing only applies to moe-family archs "
+                 f"({args.arch} is {cfg.family})")
     try:
         model = build_model(cfg)
         device = resolve_device(args.device)

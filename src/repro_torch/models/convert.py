@@ -1,7 +1,9 @@
 """Weight bridge: a params tree of numpy arrays -> the port's params.
 
 The tree has JAX's leaf names and layouts (stacked ``(L, ...)`` block
-params), so the bridge is a per-leaf copy.  bf16 leaves arrive either
+params, and for the moe family the ``moe`` leaves ``router (D, E)``,
+``wg``/``wu (E, D, F)`` and ``wd (E, F, D)``), so the bridge is a per-leaf
+copy.  bf16 leaves arrive either
 widened to float32 or as a ``uint16`` view of their bits (numpy has no
 bf16); the caller maps JAX arrays to numpy — the port never sees one.
 """

@@ -1,5 +1,6 @@
 """Unified model API: ``build_model(cfg) -> Model`` (PyTorch counterpart
-of ``repro/models/model.py``, dense family on the paged KV plane).
+of ``repro/models/model.py``, dense and moe families on the paged KV
+plane).
 
 Entry points run on the CUDA card unless the caller passes
 ``device="cpu"``; without a card they raise (``repro_torch.device``).
@@ -45,7 +46,7 @@ class Model:
 
 
 def build_model(cfg: ModelConfig) -> Model:
-    transformer.require_dense(cfg)
+    transformer.require_paged_family(cfg)
 
     def init_paged_cache(batch, max_len, block_tokens=16, frames=None,
                          device=None):

@@ -1,5 +1,5 @@
 """Decoder-only LM on the paged KV plane (PyTorch counterpart of
-``repro/models/transformer.py``, dense family).
+``repro/models/transformer.py``, dense and moe families).
 
 The stacked ``(L, ...)`` block params keep JAX's leaf names and layouts;
 ``lax.scan`` over them becomes a Python loop over layers.  The arena is
@@ -14,21 +14,22 @@ from typing import Any, Dict
 
 import torch
 
+from repro_torch.models import moe as moe_mod
 from repro_torch.models.layers import (
     ParamDef, attn_schema, mlp_apply, mlp_schema, paged_attn_apply,
     paged_prefill_attn_apply, rmsnorm, stack_schema,
 )
 
-_LATER = {"moe": "MoE and VLM on the paged plane",
-          "vlm": "MoE and VLM on the paged plane",
+_PAGED_FAMILIES = ("dense", "moe")
+_LATER = {"vlm": "VLM on the paged plane",
           "hybrid": "the dense-cache plane and non-paged families",
           "ssm": "the dense-cache plane and non-paged families",
           "audio": "the dense-cache plane and non-paged families"}
 
 
-def require_dense(cfg):
-    """This slice of the port serves the dense family only."""
-    if cfg.family != "dense":
+def require_paged_family(cfg):
+    """The port serves the dense and moe families on the paged plane."""
+    if cfg.family not in _PAGED_FAMILIES:
         later = _LATER.get(cfg.family, "a later slice")
         raise NotImplementedError(
             f"family {cfg.family!r} is not ported yet; it comes with the "
@@ -40,14 +41,18 @@ def require_dense(cfg):
 # --------------------------------------------------------------------------
 def _block_schema(cfg) -> Dict[str, Any]:
     D = cfg.d_model
-    return {"ln1": ParamDef((D,), "zeros"),
-            "attn": attn_schema(cfg),
-            "ln2": ParamDef((D,), "zeros"),
-            "mlp": mlp_schema(cfg)}
+    s: Dict[str, Any] = {"ln1": ParamDef((D,), "zeros"),
+                         "attn": attn_schema(cfg),
+                         "ln2": ParamDef((D,), "zeros")}
+    if cfg.family == "moe":
+        s["moe"] = moe_mod.moe_schema(cfg)
+    else:
+        s["mlp"] = mlp_schema(cfg)
+    return s
 
 
 def lm_schema(cfg) -> Dict[str, Any]:
-    require_dense(cfg)
+    require_paged_family(cfg)
     V, D = cfg.padded_vocab, cfg.d_model
     s: Dict[str, Any] = {
         "emb": ParamDef((V, D), scale=0.02),
@@ -79,7 +84,11 @@ def _logits(params, cfg, x):
 
 
 def _ffn_block(bp, x, cfg):
+    """Pre-norm FFN with residual.  The serving steps drop the MoE aux
+    losses, which the JAX steps compute and discard."""
     h = rmsnorm(x, bp["ln2"], cfg.norm_eps)
+    if cfg.family == "moe":
+        return x + moe_mod.moe_apply(bp["moe"], h, cfg)
     return x + mlp_apply(bp["mlp"], h)
 
 
@@ -96,7 +105,7 @@ def lm_init_paged_cache(cfg, batch: int, max_len: int, block_tokens: int = 16,
     """Pooled KV arena: (L, P, bt, K, hd) pages shared by all slots through
     a block table.  P = batch * max_blocks real pages + one trash page
     (index P-1) that soaks up writes from inactive slots and pad columns."""
-    require_dense(cfg)
+    require_paged_family(cfg)
     if dtype is None:
         dtype = getattr(torch, cfg.cache_dtype)
     K, hd = cfg.n_kv_heads, cfg.head_dim
@@ -118,7 +127,12 @@ def lm_paged_prefill_chunk(params, cfg, pages, tokens, block_tables,
     not prefilling this step all < 0; ctx_lens, valid_lens: (B,) int32.
     Returns (logits (B, V) at each slot's last valid position, pages).
     """
-    require_dense(cfg)
+    require_paged_family(cfg)
+    if cfg.family == "moe" and cfg.moe_routing != "dropless":
+        # pad columns and chunk boundaries would shift capacity-factor
+        # expert drops; only dropless routing is chunk/pad-invariant
+        raise ValueError("chunked prefill for moe requires "
+                         "cfg.moe_routing='dropless'")
     B, C = tokens.shape
     dev = tokens.device
     x = _embed(params, tokens)
@@ -163,7 +177,7 @@ def lm_paged_decode_step(params, cfg, pages, tokens, block_tables, seq_lens):
     max(seq_lens) + 1 tokens); seq_lens: (B,) int32 tokens resident (the
     new token lands at position seq_lens).  Returns (logits (B, V), pages).
     """
-    require_dense(cfg)
+    require_paged_family(cfg)
     B = tokens.shape[0]
     dev = tokens.device
     x = _embed(params, tokens)

@@ -12,9 +12,11 @@ to the plane every attention family serves on by default:
   * a prompt streams in one bucket-padded chunk per tick
     (``_prefill_step`` -> ``model.paged_prefill_chunk``), and DECODE slots
     advance one token per tick in one batched ``model.paged_decode_step``
-    (``_decode_tick``).  On a CUDA device both run their attention in the
+    (``_decode_tick``).  On a CUDA device both run their attention (and,
+    for the moe family, the expert GEMMs and the gated combine) in the
     hand-written kernels of ``kernels.ops``; on the CPU in the plain
-    versions.
+    versions.  MoE serves under dropless routing; capacity routing needs
+    one-shot prefill, a later slice.
 
 Every option outside this plane raises, naming the later slice of the port
 that brings it: the dense cache (``paged_kv=False``), one-shot prefill
@@ -31,7 +33,9 @@ import torch
 
 from repro_torch.core import rpc as wire
 from repro_torch.core.pool import CoherentMemoryPool
-from repro_torch.device import device_hbm_bytes, resolve_device
+from repro_torch.device import (
+    H100_HBM_STREAM_GBs, device_hbm_bytes, resolve_device,
+)
 from repro_torch.runtime.niccost import NicCostModel, NullNicCostModel
 from repro_torch.runtime.scheduler import (
     AdmissionQueue, KVBlockPager, Request, RequestState, SlotTable,
@@ -121,12 +125,25 @@ class BatchServer:
         if paged_kv not in ("auto", None, True):
             raise _later("the dense (slots, max_len) KV cache plane "
                          "(paged_kv=False)", "the dense-cache plane")
+        # prefill is chunk/pad-invariant iff routing decisions are a pure
+        # per-token function: every family except capacity-factor MoE,
+        # whose expert drops depend on the token population of each
+        # dispatch call.  Dropless MoE (the serving default of
+        # launch.serve) runs the chunked bucketed pipeline like the rest.
+        chunk_invariant = cfg.family != "moe" or \
+            cfg.moe_routing == "dropless"
         if prefill_chunk in ("auto", None):
-            prefill_chunk = min(64, max_len)
+            prefill_chunk = min(64, max_len) if chunk_invariant else 0
         prefill_chunk = int(prefill_chunk)
         if prefill_chunk < 0:
             raise ValueError(f"prefill_chunk must be >= 0, got "
                              f"{prefill_chunk}")
+        if prefill_chunk and not chunk_invariant:
+            raise ValueError(
+                "chunked prefill needs chunk-invariant routing: "
+                "capacity-factor MoE drops depend on co-resident "
+                "tokens; serve with cfg.moe_routing='dropless' or "
+                "use prefill_chunk=0")
         if prefill_chunk == 0:
             raise _later("one-shot exact-length prefill (prefill_chunk=0)",
                          "the other paged engine planes")
@@ -164,11 +181,12 @@ class BatchServer:
         # k+v bytes per token, derived from the arena itself
         footprint = (2 * kp.numel() * kp.element_size()
                      // (kp.shape[1] * block_tokens), 0)
-        # the card's own HBM capacity (the pool's defaults are a TPU's and
-        # stay for the CPU only)
+        # the card's own HBM capacity and stream rate (the pool's defaults
+        # are the reference package's and stay for the CPU only)
         hbm = device_hbm_bytes(self.device)
         if pool is None and hbm is not None:
             pool = CoherentMemoryPool(hbm_bytes=hbm)
+            pool.tiers["hbm"].stream_bw_GBs = H100_HBM_STREAM_GBs
         self.table = SlotTable(batch_slots)
         self.queue = AdmissionQueue(continuous=True)
         self.pager = KVBlockPager(None, n_slots=batch_slots,

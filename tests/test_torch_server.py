@@ -125,6 +125,32 @@ def test_engine_without_card_raises_unless_cpu_requested(setup):
         BatchServer(tmodel, batch_slots=2, max_len=MAX_LEN, nic_cost=None)
 
 
+def test_pool_keeps_the_reference_hbm_tier_on_cpu(setup):
+    """On the CPU the pool keeps the reference package's HBM tier, so the
+    CPU engine's pool accounting matches the JAX engine's."""
+    _, _, tmodel, tparams, _ = setup
+    srv = BatchServer(tmodel, batch_slots=2, max_len=MAX_LEN, params=tparams,
+                      device="cpu", nic_cost=None)
+    assert srv.pager.pool.tiers["hbm"].stream_bw_GBs == 819.0
+    assert srv.pager.pool.tiers["hbm"].capacity_bytes == 16 << 30
+
+
+def test_pool_takes_the_cards_hbm_tier_on_cuda(setup):
+    """On a card the pool's HBM tier is the card's capacity at the H100's
+    published stream rate."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    _, _, tmodel, tparams, _ = setup
+    dev = torch.device("cuda")
+    cuda_params = jax.tree.map(lambda t: t.to(dev), tparams)
+    srv = BatchServer(tmodel, batch_slots=2, max_len=MAX_LEN,
+                      params=cuda_params, device=dev, nic_cost=None)
+    hbm = srv.pager.pool.tiers["hbm"]
+    assert hbm.stream_bw_GBs == 3350.0
+    assert hbm.capacity_bytes == torch.cuda.get_device_properties(
+        dev).total_memory
+
+
 def test_launcher_drains_on_cpu(capsys):
     out = serve.main(["--device", "cpu", "--requests", "3", "--slots", "2",
                       "--prompt-len", "9", "--max-new", "3",
@@ -138,7 +164,7 @@ def test_launcher_drains_on_cpu(capsys):
     ["--prefix-watermark", "0.5"], ["--kv-overcommit", "2"],
     ["--kv-near-blocks", "4"], ["--kv-demote-after", "3"], ["--disagg"],
     ["--prefill-slots", "2"], ["--arrival", "poisson"],
-    ["--moe-routing", "dropless"],
+    ["--moe-routing", "capacity", "--arch", "granite-moe-3b-a800m"],
 ], ids=lambda a: a[0].lstrip("-"))
 def test_launcher_refuses_unported_options_by_name(argv, capsys):
     with pytest.raises(SystemExit) as ex:
