@@ -1,15 +1,16 @@
 """Chip smoke test of the PyTorch port: builds the hand-written CUDA
 kernels from this checkout and drives the paged serving engine on one
 card, for the dense family (mistral-nemo-12b) and the moe family
-(granite-moe-3b-a800m).
+(granite-moe-3b-a800m), each on the chunked and on the one-shot prefill
+plane.
 
     python3 chip_smoke.py            # every phase; needs one CUDA card
     python3 chip_smoke.py --quick    # device, build, kernel checks only
-    python3 chip_smoke.py --profile  # also trace both engines
+    python3 chip_smoke.py --profile  # also trace the four engines
 
 Phases (each prints its own lines and wall time; any failure raises):
   1. device   — card name, and name + power limit from nvidia-smi;
-  2. build    — all four kernels, one nvcc process per source
+  2. build    — all six kernels, one nvcc process per source
                 (kernels/build.py);
   3. kernels  — each kernel against its plain PyTorch version: the
                 attention kernels at mistral-nemo-12b's shapes (H=32, K=8,
@@ -20,26 +21,38 @@ Phases (each prints its own lines and wall time; any failure raises):
                 dim ragged (5, 130, 130, 130) and a zero-size case;
                 rao_scatter_add at granite's combine
                 shapes (D=1536, M in {320, 20480} random duplicates, and
-                CENTRAL: every update on one row).  Tolerance
-                |got - plain| <= tol + tol * |plain| with tol = 2e-2 in
+                CENTRAL: every update on one row); flash_attention at both
+                models' head shapes (32/8 x 128, 24/8 x 64), S in {17, 64,
+                300}, B in {1, 4}, plus a windowed case; rmsnorm at D in
+                {64, 1536, 5120}, N in {1, 8, 1200}.  Tolerance: the
+                attention kernels |got - plain| <= tol, the others
+                |got - plain| <= tol + tol * |plain|, with tol = 2e-2 in
                 bf16 and 1e-4 in f32 (TF32 off);
-  4. tiny     — one ragged trace through a tiny f32 dense engine and a
-                tiny f32 dropless MoE engine, each on the card (kernels)
-                and on the CPU (plain versions): identical greedy tokens;
-  5. serve    — full-width 40-layer mistral-nemo-12b, then (its params
-                freed) full-width 32-layer granite-moe-3b-a800m under
-                dropless routing, each with random bf16 params from a seed
-                serving 16 wire-encoded requests (prompt lengths 17-300,
-                32 new tokens) through BatchServer (8 slots, max_len 512):
-                every request drains, logits stay finite, and each kernel
-                launched exactly L x its chunk or decode ticks (moe_gmm
-                3 x L per tick, rao_scatter_add L per tick);
+  4. tiny     — tiny f32 engines, each on the card (kernels) and on the
+                CPU (plain versions) with identical greedy tokens: dense
+                and dropless MoE on the chunked plane (a ragged trace),
+                dense one-shot with prefill_batch 1 (ragged) and 4, and
+                capacity-routed MoE one-shot with prefill_batch 4 (a trace
+                of equal-length neighbours, so admission groups form);
+  5. serve    — full-width 40-layer mistral-nemo-12b, chunked and then
+                one-shot (prefill_chunk=0), then (its params freed)
+                full-width 32-layer granite-moe-3b-a800m, dropless chunked
+                and then capacity-routed (auto: one-shot), each with
+                random bf16 params from a seed serving 16 wire-encoded
+                requests with 32 new tokens through BatchServer (8 slots,
+                max_len 512; one-shot: prefill_batch 4 and 4 groups of 4
+                equal prompt lengths; chunked: lengths 17-300): every
+                request drains, logits stay finite, and each kernel
+                launched exactly as the ticks say — paged_prefill_attention
+                L per chunk tick, paged_attention L per decode tick,
+                flash_attention L per group call, rmsnorm 2L + 1 per model
+                call, moe_gmm 3L and rao_scatter_add L per model call;
   6. measure  — on inputs each main path itself produced, each kernel's
                 time beside its plain version's, one PyTorch library call
                 that computes the same function (never called by the port:
-                scaled_dot_product_attention over the gathered dense KV,
-                torch.bmm, index_add_) and its bound at 3.35 TB/s and
-                989 TFLOP/s bf16.
+                scaled_dot_product_attention, torch.bmm, index_add_,
+                F.rms_norm) and its bound at 3.35 TB/s, 989 TFLOP/s bf16
+                (matmul work) and 67 TFLOP/s f32 (elementwise work).
 The line before the last is the kernels' JSON record; the last line is
 {"ok": true, "device": {...}}.  Without a card, or without the rest of
 the repository beside it, the script exits non-zero and prints no result.
@@ -48,6 +61,7 @@ from __future__ import annotations
 
 import argparse
 import json
+import re
 import statistics
 import subprocess
 import sys
@@ -72,6 +86,7 @@ from repro_torch.runtime.server import (  # noqa: E402
 
 HBM_BYTES_PER_S = H100_HBM_STREAM_GBs * 1e9   # H100 SXM, published
 BF16_FLOPS = 989e12              # H100 SXM dense bf16 tensor peak
+F32_FLOPS = 67e12                # H100 SXM f32 peak outside the tensor cores
 KERNELS = {
     "paged_attention": dict(
         source="src/repro_torch/kernels/csrc/paged_attention.cu",
@@ -85,9 +100,16 @@ KERNELS = {
     "rao_scatter_add": dict(
         source="src/repro_torch/kernels/csrc/rao_scatter.cu",
         replaces="src/repro/kernels/rao_scatter.py:53"),
+    "flash_attention": dict(
+        source="src/repro_torch/kernels/csrc/flash_attention.cu",
+        replaces="src/repro/kernels/flash_attention.py:99"),
+    "rmsnorm": dict(
+        source="src/repro_torch/kernels/csrc/rmsnorm.cu",
+        replaces="src/repro/kernels/rmsnorm.py:29"),
 }
 ATTENTION = ("paged_attention", "paged_prefill_attention")
 MOE = ("moe_gmm", "rao_scatter_add")
+ONESHOT = ("flash_attention", "rmsnorm")
 DENSE_ARCH, MOE_ARCH = "mistral-nemo-12b", "granite-moe-3b-a800m"
 DEV = torch.device("cuda")
 SPIN_CYCLES = 20_000_000         # ~10 ms at the H100's ~2 GHz SM clock
@@ -187,9 +209,27 @@ def phase_build():
     build.load()
     print(f"[build] kernels ready in {time.perf_counter() - t0:.2f} s "
           f"(nvcc {build.build_seconds if build.build_seconds is not None else 'cached'} s)")
+    kernel = "?"
     for line in (build.build_log or "").splitlines():
+        m = re.search(r"Compiling entry function '_ZN(\w+)'", line)
+        if m:   # the kernel's name and, for templates, the bf16 mark
+            kernel = _last_name(m.group(1)) + \
+                (" bf16" if "bfloat16" in line else "")
         if "registers" in line or "spill" in line or "error" in line:
-            print(f"[build] {line.strip()}")
+            print(f"[build] {kernel}: {line.strip()}")
+
+
+def _last_name(nested):
+    """The last <length><name> component of an Itanium-mangled nested
+    name (the function's own name)."""
+    name, i = "?", 0
+    while i < len(nested) and nested[i].isdigit():
+        j = i
+        while nested[j].isdigit():
+            j += 1
+        n = int(nested[i:j])
+        name, i = nested[j:j + n], j + n
+    return name
 
 
 @phase("kernels")
@@ -249,6 +289,53 @@ def phase_kernels(errs):
                         f"paged_prefill_attention disagrees: {e}")
                 errs["paged_prefill_attention"].append(e)
     check_moe_kernels(rng, errs)
+    check_oneshot_kernels(rng, errs)
+
+
+def check_oneshot_kernels(rng, errs):
+    """flash_attention at both served models' head shapes and rmsnorm at
+    their widths (and the q/k-norm width), against the plain versions."""
+    def rnd(shape, dtype, scale=1.0):
+        return torch.from_numpy(
+            (rng.randn(*shape) * scale).astype(np.float32)).to(DEV, dtype)
+    flash_cases = [(B, S, H, K, hd, 0) for H, K, hd in ((32, 8, 128),
+                                                         (24, 8, 64))
+                   for S in (17, 64, 300) for B in (1, 4)]
+    flash_cases += [(4, 300, 32, 8, 128, 100)]
+    for dtype, tol in ((torch.bfloat16, 2e-2), (torch.float32, 1e-4)):
+        for B, S, H, K, hd, window in flash_cases:
+            q = rnd((B, S, H, hd), dtype)
+            k = rnd((B, S, K, hd), dtype)
+            v = rnd((B, S, K, hd), dtype)
+            before = ops.LAUNCHES["flash_attention"]
+            got = ops.flash_attention(q, k, v, window=window)
+            exp = ref.flash_attention(q, k, v, window=window)
+            torch.cuda.synchronize()
+            e = max_err(got, exp)
+            ok = bool(torch.isfinite(got).all()) and e <= tol and \
+                ops.LAUNCHES["flash_attention"] == before + 1
+            print(f"[kernels] flash_attention {str(dtype)[6:]} B {B} S {S} "
+                  f"H {H} K {K} hd {hd} window {window}: max_abs_err "
+                  f"{e:.3g} (tol {tol})")
+            if not ok:
+                raise AssertionError(f"flash_attention disagrees: {e}")
+            errs["flash_attention"].append(e)
+        for D in (64, 1536, 5120):
+            for N in (1, 8, 1200):
+                x = rnd((N, D), dtype)
+                w = rnd((D,), dtype, 0.1)
+                before = ops.LAUNCHES["rmsnorm"]
+                got = ops.rmsnorm(x, w, 1e-5)
+                exp = ref.rmsnorm(x, w, 1e-5)
+                torch.cuda.synchronize()
+                e = max_err(got, exp)
+                ok = close(got, exp, tol) and \
+                    ops.LAUNCHES["rmsnorm"] == before + 1
+                print(f"[kernels] rmsnorm {str(dtype)[6:]} ({N}, {D}): "
+                      f"max_abs_err {e:.3g} (tol {tol} abs + rel)")
+                if not ok:
+                    raise AssertionError(f"rmsnorm disagrees: {e}")
+                errs["rmsnorm"].append(e)
 
 
 def check_moe_kernels(rng, errs):
@@ -321,6 +408,13 @@ def tiny_trace(vocab):
             for n, m in lens_new]
 
 
+def grouped_trace(vocab):
+    """Equal prompt lengths back to back, so prefill_batch groups form."""
+    rng = np.random.RandomState(77)
+    return [(rng.randint(1, vocab - 1, size=n).tolist(), m)
+            for n, m in [(6, 3)] * 4 + [(11, 2)] * 3 + [(6, 4), (20, 3)]]
+
+
 def drain_outputs(srv, trace):
     for i, (p, m) in enumerate(trace):
         srv.submit_wire(encode_request(i, p, m))
@@ -333,43 +427,57 @@ def drain_outputs(srv, trace):
 
 TINY = dict(n_layers=2, d_model=32, n_heads=2, n_kv_heads=2, head_dim=16,
             d_ff=64, vocab=128, param_dtype="float32", cache_dtype="float32")
+CHUNKED_KERNELS = ("paged_prefill_attention", "paged_attention", "rmsnorm")
+ONESHOT_KERNELS = ("flash_attention", "paged_attention", "rmsnorm")
 
 
 @phase("tiny")
 def phase_tiny():
-    """Tiny f32 engines on the card (kernels) and on the CPU (plain): the
-    dense one, then a dropless MoE one (8 experts, top-2)."""
+    """Tiny f32 engines on the card (kernels) and on the CPU (plain):
+    dense and dropless MoE (8 experts, top-2) chunked, then dense one-shot
+    with prefill_batch 1 and 4 and capacity-routed MoE one-shot with
+    prefill_batch 4."""
+    dense = reduced(get_config(DENSE_ARCH)).replace(**TINY)
+    moe = reduced(get_config(MOE_ARCH)).replace(**TINY)
     engines = (
-        (DENSE_ARCH, reduced(get_config(DENSE_ARCH)).replace(**TINY),
-         ATTENTION),
-        (MOE_ARCH, reduced(get_config(MOE_ARCH)).replace(
-            moe_routing="dropless", **TINY), ATTENTION + MOE),
+        ("dense chunked", dense, {}, tiny_trace, 3, CHUNKED_KERNELS),
+        ("moe dropless chunked", moe.replace(moe_routing="dropless"), {},
+         tiny_trace, 3, CHUNKED_KERNELS + MOE),
+        ("dense one-shot pfb1", dense, dict(prefill_chunk=0), tiny_trace, 3,
+         ONESHOT_KERNELS),
+        ("dense one-shot pfb4", dense, dict(prefill_chunk=0,
+                                            prefill_batch=4),
+         grouped_trace, 4, ONESHOT_KERNELS),
+        ("moe capacity one-shot pfb4", moe.replace(moe_routing="capacity"),
+         dict(prefill_batch=4), grouped_trace, 4, ONESHOT_KERNELS + MOE),
     )
-    for arch, cfg, kernels in engines:
+    for label, cfg, kw, make_trace, slots, kernels in engines:
         model = build_model(cfg)
         params = model.init(torch.Generator().manual_seed(3), "cpu")
-        trace = tiny_trace(cfg.vocab)
+        trace = make_trace(cfg.vocab)
         outs = {}
         for dev in ("cpu", "cuda"):
             p = params if dev == "cpu" else _tree_to(params, DEV)
             before = dict(ops.LAUNCHES)
-            srv = BatchServer(model, batch_slots=3, max_len=32, params=p,
-                              device=dev, nic_cost=None)
+            srv = BatchServer(model, batch_slots=slots, max_len=32, params=p,
+                              device=dev, nic_cost=None, **kw)
             outs[dev] = drain_outputs(srv, trace)
             launched = {k: ops.LAUNCHES[k] - before[k] for k in before}
             if srv.kv_stats()["paged"]["pages_in_use"]:
-                raise AssertionError(f"{arch} {dev}: pages leaked")
+                raise AssertionError(f"{label} {dev}: pages leaked")
             if dev == "cuda" and not all(launched[k] for k in kernels):
-                raise AssertionError(f"tiny {arch} skipped a kernel: "
+                raise AssertionError(f"tiny {label} skipped a kernel: "
                                      f"{launched}")
             if dev == "cpu" and any(launched.values()):
-                raise AssertionError(f"the CPU {arch} engine launched a "
+                raise AssertionError(f"the CPU {label} engine launched a "
                                      f"kernel")
         same = outs["cpu"] == outs["cuda"]
-        print(f"[tiny] {arch} ({cfg.family}): {len(outs['cuda'])} requests;"
-              f" greedy tokens identical card vs CPU: {same}")
-        if not same:
-            raise AssertionError(f"tiny {arch} engine tokens differ:\n"
+        st = srv.stats
+        print(f"[tiny] {label} ({cfg.family}): {len(outs['cuda'])} requests,"
+              f" {st['prefills']} prefills, {st['prefill_chunks']} chunk "
+              f"ticks; greedy tokens identical card vs CPU: {same}")
+        if not same or len(outs["cuda"]) != len(trace):
+            raise AssertionError(f"tiny {label} engine tokens differ:\n"
                                  f"{outs}")
 
 
@@ -403,30 +511,42 @@ class Recorder:
         setattr(ops, self.name, self.fn)
 
 
-def serve_config(arch):
-    """The full-width config served on the card; moe archs under dropless
-    routing, as launch.serve serves them."""
-    cfg = get_config(arch)
-    return cfg.replace(moe_routing="dropless") if cfg.family == "moe" \
-        else cfg
+# the four served paths: (arch, label, moe routing, server options)
+PATHS = {
+    "mistral chunked": (DENSE_ARCH, "chunked", None, {}),
+    "mistral one-shot": (DENSE_ARCH, "one-shot", None,
+                         dict(prefill_chunk=0, prefill_batch=4)),
+    "granite chunked": (MOE_ARCH, "dropless chunked", "dropless", {}),
+    "granite one-shot": (MOE_ARCH, "capacity one-shot", "capacity",
+                         dict(prefill_batch=4)),
+}
 
 
-def expected_launches(cfg, st):
-    """Each kernel's launches on the main path, from the engine's ticks."""
+def expected_launches(cfg, st, groups):
+    """Each kernel's launches on the main path, from the engine's ticks
+    and its one-shot group calls: every model call (chunk tick, decode
+    tick, group call) runs 2L + 1 norms and, for moe, 3L expert GEMMs and
+    L combines."""
     L, chunks, decodes = cfg.n_layers, st["prefill_chunks"], \
         st["decode_steps"]
+    calls = chunks + decodes + groups
     exp = {"paged_prefill_attention": L * chunks,
            "paged_attention": L * decodes,
+           "flash_attention": L * groups,
+           "rmsnorm": (2 * L + 1) * calls,
            "moe_gmm": 0, "rao_scatter_add": 0}
     if cfg.family == "moe":
-        exp["moe_gmm"] = 3 * L * (chunks + decodes)
-        exp["rao_scatter_add"] = L * (chunks + decodes)
+        exp["moe_gmm"] = 3 * L * calls
+        exp["rao_scatter_add"] = L * calls
     return exp
 
 
 @phase("serve")
-def phase_serve(arch, seed=0):
-    cfg = serve_config(arch)
+def phase_serve(path, seed=0):
+    arch, label, routing, kw = PATHS[path]
+    cfg = get_config(arch)
+    if routing is not None:
+        cfg = cfg.replace(moe_routing=routing)
     model = build_model(cfg)
     torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
@@ -434,43 +554,46 @@ def phase_serve(arch, seed=0):
     torch.cuda.synchronize()
     n_params = sum(t.numel() for t in _leaves(params))
     ffn = (f"{cfg.n_experts} experts top-{cfg.top_k} d_ff_expert "
-           f"{cfg.d_ff_expert} ({cfg.moe_routing})"
-           if cfg.family == "moe" else f"d_ff {cfg.d_ff}")
+           f"{cfg.d_ff_expert}" if cfg.family == "moe"
+           else f"d_ff {cfg.d_ff}")
     print(f"[serve] {cfg.name}: {cfg.n_layers} layers, d_model "
           f"{cfg.d_model}, heads {cfg.n_heads}/{cfg.n_kv_heads}, hd "
           f"{cfg.head_dim}, {ffn}, vocab {cfg.vocab}; "
           f"{n_params / 1e9:.2f} B bf16 params initialised in "
           f"{time.perf_counter() - t0:.1f} s")
     srv = BatchServer(model, batch_slots=8, max_len=512, block_tokens=16,
-                      params=params, device=DEV, sync_timers=True)
+                      params=params, device=DEV, sync_timers=True, **kw)
     del params
+    oneshot = srv.prefill_chunk == 0
     rng = np.random.RandomState(seed)
-    plens = rng.randint(17, 301, size=16)
+    if oneshot:       # 4 groups of 4 equal prompt lengths, back to back
+        plens = np.repeat(rng.randint(17, 301, size=4), 4)
+    else:
+        plens = rng.randint(17, 301, size=16)
     for i, n in enumerate(plens):
         srv.submit_wire(encode_request(
             i, rng.randint(1, cfg.vocab - 1, size=int(n)).tolist(), 32))
     finite = []
-    decode = srv._paged_decode
-    chunk = srv._chunk_prefill
+    group_rows = []
 
-    def decode_checked(*a):
-        lg, pg = decode(*a)
-        finite.append(torch.isfinite(lg).all())
-        return lg, pg
+    def checked(step, rows=None):
+        def run(*a):
+            lg, out = step(*a)
+            finite.append(torch.isfinite(lg).all())
+            if rows is not None:
+                rows.append(lg.shape[0])
+            return lg, out
+        return run
+    srv._paged_decode = checked(srv._paged_decode)
+    srv._chunk_prefill = checked(srv._chunk_prefill)
+    srv._prefill_exact = checked(srv._prefill_exact, group_rows)
 
-    def chunk_checked(*a):
-        lg, pg = chunk(*a)
-        finite.append(torch.isfinite(lg).all())
-        return lg, pg
-    srv._paged_decode, srv._chunk_prefill = decode_checked, chunk_checked
-
-    # record layer 0's call of each kernel in every tick (moe_gmm: its
-    # first projection, the gate)
-    periods = {"paged_attention": cfg.n_layers,
-               "paged_prefill_attention": cfg.n_layers}
-    if cfg.family == "moe":
-        periods.update(moe_gmm=3 * cfg.n_layers,
-                       rao_scatter_add=cfg.n_layers)
+    # record layer 0's call of each kernel in every model call (moe_gmm:
+    # its first projection, the gate; rmsnorm: ln1)
+    L = cfg.n_layers
+    periods = {"paged_attention": L, "paged_prefill_attention": L,
+               "flash_attention": L, "rmsnorm": 2 * L + 1,
+               "moe_gmm": 3 * L, "rao_scatter_add": L}
     recorders = [Recorder(name, n) for name, n in periods.items()]
     torch.cuda.synchronize()
     ops.reset_launches()
@@ -484,24 +607,34 @@ def phase_serve(arch, seed=0):
     launches = dict(ops.LAUNCHES)
     recs = {r.name: r.calls for r in recorders}
     st = srv.stats
+    groups = len(group_rows)
     outs = {}
     for buf in bufs:
         msg = wire.decode(buf, {1: "int", 2: "bytes"})
         outs[msg[1]] = np.frombuffer(msg[2], np.int32).tolist()
     peak = torch.cuda.max_memory_allocated() / 2**30
-    print(f"[serve] {cfg.name}: {len(outs)}/16 drained, {st['failed']} "
-          f"failed, {st['ticks']} ticks ({st['prefill_chunks']} chunk ticks,"
-          f" {st['decode_steps']} decode ticks) in {wall:.2f} s; peak memory"
-          f" {peak:.2f} GiB")
+    name = f"{cfg.name} {label}"
+    print(f"[serve] {name}: {len(outs)}/16 drained, {st['failed']} failed, "
+          f"{st['ticks']} ticks ({groups} group calls of {group_rows} rows, "
+          f"{st['prefill_chunks']} chunk ticks, {st['decode_steps']} decode "
+          f"ticks) in {wall:.2f} s; peak memory {peak:.2f} GiB")
     prompt_toks = int(plens.sum())
-    print(f"[serve] {cfg.name} prefill: {prompt_toks} tokens in "
-          f"{st['splice_wall_s']:.3f} s = "
-          f"{prompt_toks / st['splice_wall_s']:.1f} tok/s")
-    print(f"[serve] {cfg.name} decode: {st['decode_tokens']} tokens in "
+    if oneshot:
+        # the group forwards run inside admission; splice_wall_s holds
+        # only the page writes (as in the JAX engine)
+        print(f"[serve] {name} prefill: {prompt_toks} tokens in "
+              f"{st['admit_wall_s']:.3f} s of admission = "
+              f"{prompt_toks / st['admit_wall_s']:.1f} tok/s (page writes "
+              f"{st['splice_wall_s']:.4f} s)")
+    else:
+        print(f"[serve] {name} prefill: {prompt_toks} tokens in "
+              f"{st['splice_wall_s']:.3f} s of chunk ticks = "
+              f"{prompt_toks / st['splice_wall_s']:.1f} tok/s")
+    print(f"[serve] {name} decode: {st['decode_tokens']} tokens in "
           f"{st['decode_wall_s']:.3f} s = "
           f"{st['decode_tokens'] / st['decode_wall_s']:.1f} tok/s")
-    expected = expected_launches(cfg, st)
-    print(f"[serve] {cfg.name} launches {launches}; expected {expected}")
+    expected = expected_launches(cfg, st, groups)
+    print(f"[serve] {name} launches {launches}; expected {expected}")
     if len(outs) != 16 or st["failed"] or \
             any(len(v) != 32 for v in outs.values()):
         raise AssertionError(f"requests not drained: {st}")
@@ -509,10 +642,14 @@ def phase_serve(arch, seed=0):
         raise AssertionError("pages leaked")
     if not bool(torch.stack(finite).all()):
         raise AssertionError("non-finite logits on the main path")
-    if launches != expected or not all(launches[k] for k in periods):
+    if oneshot and group_rows != [4] * 4:
+        raise AssertionError(f"admission groups did not form: {group_rows}")
+    required = (ONESHOT_KERNELS if oneshot else CHUNKED_KERNELS) + \
+        (MOE if cfg.family == "moe" else ())
+    if launches != expected or not all(launches[k] for k in required):
         raise AssertionError(f"launch counts do not match ticks: "
                              f"{launches} vs {expected}")
-    return launches, recs, srv
+    return name, launches, recs, srv
 
 
 def _leaves(tree):
@@ -733,6 +870,101 @@ def phase_measure_moe(recs, errs):
     return out
 
 
+def flash_work(q, k, window):
+    """Bytes and flops of one causal flash_attention call: q, k, v read
+    once and the output written once; 4 hd flops (q.k and p.v) per live
+    (query, key) pair of each query head."""
+    B, S, H, hd = q.shape
+    T, K = k.shape[1], k.shape[2]
+    c = np.arange(S)
+    live = np.minimum(c + 1, T)
+    if window:
+        live = np.minimum(live, window)
+    nbytes = (2 * B * S * H * hd + 2 * B * T * K * hd) * q.element_size()
+    return nbytes, 4 * hd * H * B * int(live.sum())
+
+
+def rms_work(x, w):
+    """Bytes and f32 operations of one rmsnorm call: x read and the output
+    written once, w once; square, sum, scale and weight per element."""
+    D = x.shape[-1]
+    N = x.numel() // D
+    return (2 * N * D + D) * x.element_size(), 4 * N * D
+
+
+@phase("measure")
+def phase_measure_oneshot(recs, errs, name):
+    """Time flash_attention and rmsnorm on a one-shot path's own inputs
+    (layer 0's call in its smallest and its largest model call), cold L2,
+    beside the plain version and one library call the port never makes:
+    scaled_dot_product_attention(is_causal, enable_gqa) and F.rms_norm."""
+    flush = torch.empty(256 << 20, dtype=torch.uint8, device=DEV)
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    out = {}
+    for kname in ONESHOT:
+        calls = recs[kname]
+        if kname == "flash_attention":
+            sized = sorted(calls, key=lambda c: flash_work(
+                c[0][0], c[0][1], c[1].get("window", 0))[1])
+        else:
+            sized = sorted(calls, key=lambda c: c[0][0].numel())
+        for label, (args, kw) in (("smallest", sized[0]), ("max", sized[-1])):
+            if kname == "flash_attention":
+                q, k, v = args
+                window = kw.get("window", 0)
+                if window:
+                    raise AssertionError("the served configs have no window")
+                nbytes, n_ops = flash_work(q, k, window)
+                t_ops = n_ops / BF16_FLOPS * 1e3
+                qt, kt, vt = (t.transpose(1, 2).contiguous()
+                              for t in (q, k, v))
+                run = partial(ops.flash_attention, q, k, v, **kw)
+                plain = partial(ref.flash_attention, q, k, v, **kw)
+                library = partial(sdpa, qt, kt, vt, is_causal=True,
+                                  enable_gqa=True)
+                lib = library().transpose(1, 2)
+                lib_name = "sdpa(is_causal, enable_gqa)"
+                shape = f"q {tuple(q.shape)} k {tuple(k.shape)}"
+            else:
+                x, w, eps = args
+                nbytes, n_ops = rms_work(x, w)
+                t_ops = n_ops / F32_FLOPS * 1e3
+                w1 = (1.0 + w.float()).to(x.dtype)
+                run = partial(ops.rmsnorm, x, w, eps)
+                plain = partial(ref.rmsnorm, x, w, eps)
+                library = partial(torch.nn.functional.rms_norm, x,
+                                  (x.shape[-1],), w1, eps)
+                lib = library()
+                lib_name = "F.rms_norm"
+                shape = f"x {tuple(x.shape)}"
+            exp = plain()
+            got = run()
+            torch.cuda.synchronize()
+            err = max_err(got, exp)
+            if not close(got, exp, 2e-2):
+                raise AssertionError(f"{kname} disagrees on main-path inputs:"
+                                     f" {err}")
+            errs[kname].append(err)
+            lib_err = max_err(lib, exp)
+            k_ms = time_ms(run, 20, flush)
+            p_ms = time_ms(plain, 5, flush)
+            l_ms = time_ms(library, 20, flush)
+            t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+            bound = max(t_bytes, t_ops)
+            print(f"[measure] {kname} ({name}, {label} call) on main-path "
+                  f"inputs {shape}: kernel {k_ms:.4f} ms, plain {p_ms:.4f} "
+                  f"ms, {lib_name} {l_ms:.4f} ms (library vs plain "
+                  f"max_abs_err {lib_err:.3g}); bound {bound:.4f} ms "
+                  f"({nbytes} bytes -> {t_bytes:.4f} ms, {n_ops} ops -> "
+                  f"{t_ops:.4f} ms); max_abs_err {err:.3g}")
+            if label == "max":
+                out[kname] = dict(ms=k_ms, plain_ms=p_ms, library_ms=l_ms,
+                                  bound_ms=float(bound),
+                                  bound_by="bytes" if t_bytes >= t_ops
+                                  else "operations")
+    return out
+
+
 def _device_us(evt):
     for attr in ("self_device_time_total", "self_cuda_time_total"):
         if hasattr(evt, attr):
@@ -740,10 +972,12 @@ def _device_us(evt):
     return 0.0
 
 
-# device kernels by name: ours (attention, moe_gmm, the rao kernels) and
-# cuBLAS's matmuls
+# device kernels by name: ours (attention, norms, moe_gmm, the rao
+# kernels) and cuBLAS's matmuls
 PROFILE_PARTS = (
     ("paged attention", ("paged",)),
+    ("flash_attention", ("flash_attention",)),
+    ("rmsnorm", ("rmsnorm",)),
     ("moe_gmm", ("moe_gmm",)),
     ("rao_scatter_add", ("scatter_add_kernel", "widen_kernel",
                          "narrow_kernel")),
@@ -754,17 +988,22 @@ PROFILE_PARTS = (
 @phase("profile")
 def phase_profile(srv, seed=1):
     """Device time by kernel, and the device's busy share, over one chunk
-    tick (8 slots x 64 tokens) and three decode ticks (8 slots) of the
-    full-width engine, traced with torch.profiler."""
+    tick (8 slots x 64 tokens; one-shot: the admission tick, two group
+    calls of 4 x 200 tokens and a decode) and three decode ticks (8
+    slots) of the full-width engine, traced with torch.profiler."""
     from torch.profiler import ProfilerActivity, profile
     rng = np.random.RandomState(seed)
     vocab = srv.model.cfg.vocab
     for i in range(srv.slots):
         srv.submit_wire(encode_request(
             1000 + i, rng.randint(1, vocab - 1, size=200).tolist(), 16))
-    srv.step()                              # admit + first 64-token chunk
+    if srv.prefill_chunk:
+        srv.step()                          # admit + first 64-token chunk
+        windows = (("chunk", 1), ("skip", 2), ("decode", 3))
+    else:
+        windows = (("admit", 1), ("decode", 3))
     torch.cuda.synchronize()
-    for label, ticks in (("chunk", 1), ("skip", 2), ("decode", 3)):
+    for label, ticks in windows:
         if label == "skip":                 # rest of the prompts
             for _ in range(ticks):
                 srv.step()
@@ -801,8 +1040,9 @@ def main(argv=None):
                     help="device, build and kernel phases only; prints no "
                          "result line")
     ap.add_argument("--profile", action="store_true",
-                    help="also trace one chunk tick and three decode ticks "
-                         "of each full-width engine with torch.profiler")
+                    help="also trace one prefill tick and three decode "
+                         "ticks of each full-width engine with "
+                         "torch.profiler")
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False; this script "
@@ -816,17 +1056,28 @@ def main(argv=None):
     if args.quick:
         return 0
     phase_tiny()
-    launches, recs, srv = phase_serve(DENSE_ARCH)
+    by_path = {}
+    name, by_path[name], recs, srv = phase_serve("mistral chunked")
     meas = phase_measure(recs, errs)
+    if args.profile:
+        phase_profile(srv)
+    del srv, recs                      # free the arena and the params
+    name, by_path[name], recs, srv = phase_serve("mistral one-shot")
+    meas.update(phase_measure_oneshot(recs, errs, name))
     if args.profile:
         phase_profile(srv)
     del srv, recs                      # free mistral's 24.5 GB of params
     torch.cuda.empty_cache()
-    moe_launches, recs, srv = phase_serve(MOE_ARCH)
+    name, by_path[name], recs, srv = phase_serve("granite chunked")
     meas.update(phase_measure_moe(recs, errs))
     if args.profile:
         phase_profile(srv)
-    by_path = {DENSE_ARCH: launches, MOE_ARCH: moe_launches}
+    del srv, recs
+    name, by_path[name], recs, srv = phase_serve("granite one-shot")
+    phase_measure_oneshot(recs, errs, name)
+    if args.profile:
+        phase_profile(srv)
+    del srv, recs
     record = {"kernels": [
         dict(name=name, route="cuda", **KERNELS[name],
              launches=sum(n[name] for n in by_path.values()),

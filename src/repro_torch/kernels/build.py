@@ -2,7 +2,8 @@
 
 Every kernel source (``csrc/paged_attention.cu``,
 ``csrc/paged_prefill_attention.cu``, ``csrc/moe_gmm.cu``,
-``csrc/rao_scatter.cu``) compiles in its own ``nvcc`` process, all
+``csrc/rao_scatter.cu``, ``csrc/flash_attention.cu``,
+``csrc/rmsnorm.cu``) compiles in its own ``nvcc`` process, all
 started together, and one more ``nvcc`` call links the objects into a
 single shared library with a plain C interface, loaded with ``ctypes`` —
 no PyTorch headers, so the build takes seconds, not minutes.  The library
@@ -27,7 +28,7 @@ from typing import Optional
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 SOURCES = ("paged_attention.cu", "paged_prefill_attention.cu", "moe_gmm.cu",
-           "rao_scatter.cu")
+           "rao_scatter.cu", "flash_attention.cu", "rmsnorm.cu")
 HEADERS = ("paged_common.cuh",)
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-Xcompiler", "-fPIC", "-lineinfo", "-Xptxas", "-v")
@@ -109,6 +110,13 @@ def _bind(lib: ctypes.CDLL) -> ctypes.CDLL:
     lib.rao_scatter_add_launch.argtypes = [i, p, p, p, p, i, i, i, p]
     #                          dtype table idx vals scratch N M D stream
     lib.rao_scatter_add_launch.restype = i
+    lib.flash_attention_launch.argtypes = [
+        i, p, p, p, p,                        # dtype, q k v out
+        i, i, i, i, i, i, i, i, f, p]         # B S T H K hd causal window scale stream
+    lib.flash_attention_launch.restype = i
+    lib.rmsnorm_launch.argtypes = [i, p, p, p, ctypes.c_longlong, i, f, p]
+    #                              dtype x w out N D eps stream
+    lib.rmsnorm_launch.restype = i
     return lib
 
 

@@ -1,5 +1,5 @@
-// Shared tile machinery of the two paged attention kernels
-// (paged_attention.cu, paged_prefill_attention.cu).
+// Shared tile machinery of the attention kernels (paged_attention.cu,
+// paged_prefill_attention.cu, flash_attention.cu).
 //
 // A CTA owns up to kRows softmax rows (query heads of one kv head, times
 // chunk positions for prefill) and walks the keys in tiles of kTile
@@ -16,7 +16,7 @@
 //   5. P.V: each thread owns fixed (row, 4 columns) quads of the f32
 //      accumulator, kept in registers across tiles.
 // The key-side mask is a functor ``live(row, t)`` supplied per kernel, so
-// the decode and prefill contracts stay separate.
+// the decode, paged-prefill and flash contracts stay separate.
 #pragma once
 
 #include <cuda_bf16.h>
@@ -251,7 +251,9 @@ __device__ __forceinline__ void attend_tile(const Smem& s, int hd, int nrows, fl
   __syncthreads();
 }
 
-// out = acc / l, cast to T.  row_ptr(r) gives the output row in global memory.
+// out = acc / max(l, 1e-20), cast to T.  row_ptr(r) gives the output row in
+// global memory.  A row with any live key has l >= 1 (its max scores
+// exp(0)); the clamp keeps a row with none at 0, as the TPU kernels do.
 template <typename T, typename RowPtr>
 __device__ __forceinline__ void store_rows(const Smem& s, int hd, int nrows,
                            const float4 (&acc)[kMaxQuads], RowPtr row_ptr) {
@@ -262,7 +264,7 @@ __device__ __forceinline__ void store_rows(const Smem& s, int hd, int nrows,
     if (qi < nrows * nq) {
       const int r = qi / nq;
       const int d = (qi - r * nq) * 4;
-      const float l = s.l[r];
+      const float l = fmaxf(s.l[r], 1e-20f);
       T* o = row_ptr(r) + d;
       store_from_float(o + 0, acc[j].x / l);
       store_from_float(o + 1, acc[j].y / l);

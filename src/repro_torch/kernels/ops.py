@@ -1,6 +1,6 @@
 """Public wrappers for the hand-written kernels: paged decode and
-chunked-prefill attention, the grouped expert matmul and the RAO
-scatter-add.
+chunked-prefill attention, the prompt forward's flash attention, RMSNorm,
+the grouped expert matmul and the RAO scatter-add.
 
 One wrapper per kernel.  The device of the inputs picks the path, and
 nothing else does:
@@ -24,7 +24,8 @@ from repro_torch.kernels import build, ref
 
 LAUNCHES: Dict[str, int] = {"paged_attention": 0,
                             "paged_prefill_attention": 0,
-                            "moe_gmm": 0, "rao_scatter_add": 0}
+                            "moe_gmm": 0, "rao_scatter_add": 0,
+                            "flash_attention": 0, "rmsnorm": 0}
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 MAX_HEAD_DIM = 256
 MAX_GROUP = 32          # query heads per kv head: one CTA's softmax rows
@@ -242,3 +243,83 @@ def rao_scatter_add(table, idx, vals):
                            f"error {rc}")
     LAUNCHES["rao_scatter_add"] += 1
     return table
+
+
+def flash_attention(q, k, v, *, causal: bool = True, window: int = 0):
+    """Causal (optionally sliding-window) GQA attention of a prompt over
+    its own keys: q (B, S, H, hd), k/v (B, T, K, hd) with H % K == 0, the
+    kv heads read directly (no repeat).  See ``kernels.ref.flash_attention``
+    for the contract.  Returns (B, S, H, hd) in q.dtype."""
+    if q.device.type == "cpu":
+        return ref.flash_attention(q, k, v, causal=causal, window=window)
+    if q.device.type != "cuda":
+        raise ValueError(f"flash_attention: no kernel for {q.device}")
+    for name, t in (("k", k), ("v", v)):
+        if t.device != q.device:
+            raise ValueError(f"flash_attention: {name} on {t.device}, q on "
+                             f"{q.device}")
+        if t.dtype != q.dtype:
+            raise TypeError(f"flash_attention: {name} is {t.dtype}, q is "
+                            f"{q.dtype}")
+    if q.dtype not in _DTYPES:
+        raise TypeError(f"flash_attention: dtype {q.dtype} unsupported "
+                        f"(float32 or bfloat16)")
+    if q.dim() != 4 or k.dim() != 4 or v.shape != k.shape \
+            or k.shape[0] != q.shape[0] or k.shape[3] != q.shape[3]:
+        raise ValueError(f"flash_attention: shapes q {tuple(q.shape)}, k "
+                         f"{tuple(k.shape)}, v {tuple(v.shape)} are not "
+                         f"(B, S, H, hd), (B, T, K, hd)")
+    if not (q.is_contiguous() and k.is_contiguous() and v.is_contiguous()):
+        raise ValueError("flash_attention: q, k and v must be contiguous")
+    B, S, H, hd = q.shape
+    T, K = k.shape[1], k.shape[2]
+    if hd % 8 or hd > MAX_HEAD_DIM:
+        raise ValueError(f"flash_attention: head_dim {hd} must be a "
+                         f"multiple of 8 up to {MAX_HEAD_DIM}")
+    if K == 0 or H % K:
+        raise ValueError(f"flash_attention: {H} query heads not a multiple "
+                         f"of {K} kv heads")
+    out = torch.empty_like(q)
+    if 0 in (B, S, T, H):
+        return out.zero_()
+    rc = build.load().flash_attention_launch(
+        _DTYPES[q.dtype], q.data_ptr(), k.data_ptr(), v.data_ptr(),
+        out.data_ptr(), B, S, T, H, K, hd, int(bool(causal)), int(window),
+        1.0 / math.sqrt(hd), _stream_ptr(q.device))
+    if rc:
+        raise RuntimeError(f"flash_attention kernel launch failed: CUDA "
+                           f"error {rc}")
+    LAUNCHES["flash_attention"] += 1
+    return out
+
+
+def rmsnorm(x, w, eps: float = 1e-5):
+    """RMSNorm over the last dim: x (..., D), w (D,) of x's dtype (float32
+    or bfloat16) -> x.shape, ``x * rsqrt(mean(x^2) + eps) * (1 + w)`` in
+    f32 rounded once; the leading dims flatten into rows.  See
+    ``kernels.ref.rmsnorm``."""
+    if x.device.type == "cpu":
+        return ref.rmsnorm(x, w, eps)
+    if x.device.type != "cuda":
+        raise ValueError(f"rmsnorm: no kernel for {x.device}")
+    if w.device != x.device:
+        raise ValueError(f"rmsnorm: w on {w.device}, x on {x.device}")
+    if x.dtype not in _DTYPES or w.dtype != x.dtype:
+        raise TypeError(f"rmsnorm: dtypes {x.dtype} / {w.dtype} unsupported "
+                        f"(both float32 or both bfloat16)")
+    if x.dim() < 1 or w.shape != (x.shape[-1],):
+        raise ValueError(f"rmsnorm: w {tuple(w.shape)} does not match the "
+                         f"last dim of x {tuple(x.shape)}")
+    if not (x.is_contiguous() and w.is_contiguous()):
+        raise ValueError("rmsnorm: x and w must be contiguous")
+    D = x.shape[-1]
+    out = torch.empty_like(x)
+    if x.numel() == 0:
+        return out
+    rc = build.load().rmsnorm_launch(
+        _DTYPES[x.dtype], x.data_ptr(), w.data_ptr(), out.data_ptr(),
+        x.numel() // D, D, float(eps), _stream_ptr(x.device))
+    if rc:
+        raise RuntimeError(f"rmsnorm kernel launch failed: CUDA error {rc}")
+    LAUNCHES["rmsnorm"] += 1
+    return out

@@ -2,9 +2,11 @@
 
 Line for line with the jnp oracles of ``repro/kernels/ref.py``: for the
 paged attention kernels a dense gather of the block-table pages, f32
-scores and softmax, output in ``q.dtype``; for ``moe_gmm`` an f32 einsum
-cast to ``xe.dtype``; for ``rao_scatter_add`` an accumulating index put
-in f32, cast to the table's dtype.  The CPU path of ``kernels.ops`` and
+scores and softmax, output in ``q.dtype``; for ``flash_attention`` the
+same over the prompt's own keys, read per kv head (no repeat to H heads);
+for ``moe_gmm`` an f32 einsum cast to ``xe.dtype``; for
+``rao_scatter_add`` an accumulating index put in f32, cast to the table's
+dtype; for ``rmsnorm`` the f32 formula of ``repro/models/layers.py``.  The CPU path of ``kernels.ops`` and
 the kernel-vs-plain comparison in ``chip_smoke.py`` use these; the
 serving path on a card never does.
 """
@@ -15,6 +17,46 @@ import math
 import torch
 
 NEG_INF = -1e30
+
+
+def rmsnorm(x, w, eps: float = 1e-5):
+    """x: (..., D), w: (D,) -> x.shape in x.dtype:
+    ``x * rsqrt(mean(x^2) + eps) * (1 + w)`` in f32, rounded once."""
+    x32 = x.float()
+    var = (x32 * x32).mean(dim=-1, keepdim=True)
+    y = x32 * torch.rsqrt(var + eps)
+    return (y * (1.0 + w.float())).to(x.dtype)
+
+
+def flash_attention(q, k, v, *, causal: bool = True, window: int = 0,
+                    scale: float | None = None):
+    """Blocked-softmax attention's function, unblocked.
+
+    q: (B, S, H, hd); k, v: (B, T, K, hd), H % K == 0 (GQA: query head h
+    reads kv head h // (H / K)).  Query c and key u sit at absolute
+    positions c and u; u is live iff u <= c when ``causal`` and
+    u > c - window with a window.  f32 scores and sums, masked scores
+    -1e30 with their weight zeroed, denominator clamped at 1e-20.
+    Returns (B, S, H, hd) in q.dtype.
+    """
+    B, S, H, hd = q.shape
+    T, K = k.shape[1], k.shape[2]
+    G = H // K
+    scale = scale or 1.0 / math.sqrt(hd)
+    qg = q.reshape(B, S, K, G, hd).float()
+    s = torch.einsum("bskgd,btkd->bkgst", qg, k.float()) * scale
+    qp = torch.arange(S, device=q.device)[:, None]
+    kp = torch.arange(T, device=q.device)[None, :]
+    live = torch.ones((S, T), dtype=torch.bool, device=q.device)
+    if causal:
+        live &= kp <= qp
+    if window:
+        live &= kp > qp - window
+    s = s.masked_fill(~live, NEG_INF)
+    p = torch.exp(s - s.amax(dim=-1, keepdim=True)) * live
+    den = p.sum(dim=-1, keepdim=True).clamp_min(1e-20)
+    out = torch.einsum("bkgst,btkd->bskgd", p / den, v.float())
+    return out.reshape(B, S, H, hd).to(q.dtype)
 
 
 def paged_attention(q, k_pages, v_pages, block_tables, seq_lens,

@@ -3,9 +3,10 @@ the port's paged KV engine.
 
 ``python -m repro_torch.launch.serve --requests 8`` serves a reduced
 mistral-nemo-12b (``--arch granite-moe-3b-a800m``: a reduced granite MoE,
-dropless routing), as the JAX launcher does, on the CUDA card
-(``--device cpu`` for the plain PyTorch path), submits wire-encoded
-requests, drains them through chunked prefill and batched paged decode,
+dropless routing unless ``--moe-routing capacity``), as the JAX launcher
+does, on the CUDA card (``--device cpu`` for the plain PyTorch path),
+submits wire-encoded requests, drains them through chunked
+(``--prefill-chunk 0``: one-shot) prefill and batched paged decode,
 and reports tokens, scheduler stats and the SimCXL-projected CXL-NIC vs
 PCIe-NIC host cost.  The options of the JAX launcher that belong to
 planes not ported yet are accepted by name and refused with the slice
@@ -37,8 +38,6 @@ def _refuse_unported(ap, args):
         (args.arrival != "all-at-once", f"--arrival {args.arrival}",
          "the asyncio engine (other paged engine planes)"),
         (args.no_paged_kv, "--no-paged-kv", "the dense-cache plane"),
-        (args.prefill_chunk == 0, "--prefill-chunk 0",
-         "one-shot prefill (other paged engine planes)"),
         (args.prefix_cache, "--prefix-cache",
          "the prefix cache (other paged engine planes)"),
         (bool(args.prefix_watermark), "--prefix-watermark",
@@ -72,8 +71,9 @@ def main(argv=None):
     ap.add_argument("--slots", type=int, default=4)
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--prefill-chunk", type=int, default=None,
-                    help="prefill chunk tokens (default: auto = "
-                         "min(64, max_len))")
+                    help="prefill chunk tokens (0 = one-shot exact-length "
+                         "prefill; default: auto = min(64, max_len), "
+                         "one-shot under capacity routing)")
     ap.add_argument("--prefill-buckets", type=int, default=4,
                     help="pad targets for the ragged last chunk (geometric "
                          "halves of the chunk size)")
@@ -94,8 +94,9 @@ def main(argv=None):
     ap.add_argument("--prefill-slots", type=int, default=None)
     ap.add_argument("--moe-routing", default="auto",
                     choices=("auto", "dropless", "capacity"),
-                    help="moe archs: auto/dropless (chunked prefill); "
-                         "capacity needs one-shot prefill, not ported")
+                    help="moe archs: auto/dropless (chunked prefill by "
+                         "default) or capacity (training-parity capacity-"
+                         "factor drops; forces one-shot prefill)")
     args = ap.parse_args(argv)
 
     _refuse_unported(ap, args)
@@ -110,13 +111,16 @@ def main(argv=None):
     cfg = reduced(get_config(args.arch))
     if cfg.family == "moe":
         # serving default: dropless routing, so moe joins the chunked
-        # bucketed prefill pipeline; capacity routing needs the one-shot
-        # plane, which is not ported
-        if args.moe_routing == "capacity":
-            ap.error("--moe-routing capacity is not ported yet: it comes "
-                     "with the port's slice for one-shot prefill (other "
-                     "paged engine planes)")
-        cfg = cfg.replace(moe_routing="dropless")
+        # bucketed prefill pipeline; --moe-routing capacity restores the
+        # training-parity capacity-factor plane (one-shot prefill only)
+        routing = "dropless" if args.moe_routing == "auto" \
+            else args.moe_routing
+        cfg = cfg.replace(moe_routing=routing)
+        if routing == "capacity" and args.prefill_chunk:
+            ap.error("--prefill-chunk needs chunk-invariant routing; "
+                     "capacity-factor MoE serves one-shot "
+                     "(drop --moe-routing capacity or use "
+                     "--prefill-chunk 0)")
     elif args.moe_routing != "auto":
         ap.error(f"--moe-routing only applies to moe-family archs "
                  f"({args.arch} is {cfg.family})")

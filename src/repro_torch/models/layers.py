@@ -2,9 +2,10 @@
 ``repro/models/layers.py``).
 
 Numerics follow the JAX reference exactly: ``rmsnorm`` in f32 with
-``(1 + w)``; RoPE rotates the two halves (not interleaved pairs) with
-frequencies computed in numpy f32; ``silu`` in f32 cast back before the
-``* u``; the new k/v cast to the pool dtype before attention.
+``(1 + w)`` (the ``rmsnorm`` kernel on a card); RoPE rotates the two
+halves (not interleaved pairs) with frequencies computed in numpy f32;
+``silu`` in f32 cast back before the ``* u``; the new k/v cast to the
+pool dtype before attention.
 """
 from __future__ import annotations
 
@@ -95,10 +96,9 @@ def init_params(schema, generator: torch.Generator, dtype: torch.dtype,
 # Normalization
 # --------------------------------------------------------------------------
 def rmsnorm(x, w, eps: float = 1e-5):
-    x32 = x.float()
-    var = (x32 * x32).mean(dim=-1, keepdim=True)
-    y = x32 * torch.rsqrt(var + eps)
-    return (y * (1.0 + w.float())).to(x.dtype)
+    """``x * rsqrt(mean(x^2) + eps) * (1 + w)`` in f32, in x.dtype: the
+    ``rmsnorm`` kernel on a card, the plain formula on the CPU."""
+    return kops.rmsnorm(x, w, eps)
 
 
 # --------------------------------------------------------------------------
@@ -195,6 +195,29 @@ def compute_kv(p, x, cfg, positions=None):
     if cfg.rope_theta > 0 and positions is not None:
         k = apply_rope(k, positions, cfg.rope_theta)
     return k, v
+
+
+def attn_apply(p, x, cfg):
+    """Causal self-attention of a whole prompt (the prompt forward of
+    one-shot prefill).
+
+    x: (B, S, D) at positions [0, S).  Projections, q/k norm and RoPE as
+    in the paged paths, then ``kernels.ops.flash_attention`` (causal, with
+    ``cfg.sliding_window``) over the prompt's own keys.  Returns
+    (attn_out (B, S, D), (k, v) each (B, S, K, hd) in x.dtype), as JAX's
+    ``attn_apply`` does.
+    """
+    B, S, D = x.shape
+    _check_rope(cfg)
+    H, hd = cfg.n_heads, cfg.head_dim
+    positions = torch.arange(S, device=x.device)
+    q = _project_q(p, x, cfg, positions)
+    k, v = compute_kv(p, x, cfg, positions=positions)
+    out = kops.flash_attention(q.contiguous(), k.contiguous(),
+                               v.contiguous(), causal=True,
+                               window=cfg.sliding_window)
+    proj = out.reshape(B, S, H * hd) @ p["wo"]
+    return proj, (k, v)
 
 
 def paged_attn_apply(p, x, cfg, k_pages, v_pages, block_tables, seq_lens):

@@ -1,6 +1,6 @@
 """Unified model API: ``build_model(cfg) -> Model`` (PyTorch counterpart
 of ``repro/models/model.py``, dense and moe families on the paged KV
-plane).
+plane: one-shot and chunked prefill, paged decode).
 
 Entry points run on the CUDA card unless the caller passes
 ``device="cpu"``; without a card they raise (``repro_torch.device``).
@@ -30,6 +30,11 @@ class Model:
     paged_prefill_chunk: Callable
     # (params, pages, tokens, block_tables, ctx_lens, valid_lens)
     #   -> (last-valid-position logits, pages)
+    prefill: Callable
+    # (params, tokens (B, S)) -> (last-position logits, cache
+    #   {"k","v": (L, B, S, K, hd), "cur"}): exact length (max_len=None)
+    paged_prefill_write: Callable
+    # (pages, k_rows, v_rows, block_ids, prompt_len, skip_tokens=0) -> pages
 
     def init(self, generator: Optional[torch.Generator] = None,
              device=None):
@@ -63,4 +68,8 @@ def build_model(cfg: ModelConfig) -> Model:
         paged_prefill_chunk=lambda p, pages, t, btab, ctx, valid:
             transformer.lm_paged_prefill_chunk(p, cfg, pages, t, btab, ctx,
                                                valid),
+        prefill=lambda p, t: transformer.lm_prefill(p, cfg, t),
+        paged_prefill_write=lambda pages, k, v, ids, n, skip=0:
+            transformer.lm_paged_prefill_write(cfg, pages, k, v, ids, n,
+                                               skip),
     )

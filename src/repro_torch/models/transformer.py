@@ -1,5 +1,7 @@
 """Decoder-only LM on the paged KV plane (PyTorch counterpart of
-``repro/models/transformer.py``, dense and moe families).
+``repro/models/transformer.py``, dense and moe families): the
+exact-length prompt forward of one-shot prefill (``lm_prefill``) and its
+page write, chunked prefill, and paged decode.
 
 The stacked ``(L, ...)`` block params keep JAX's leaf names and layouts;
 ``lax.scan`` over them becomes a Python loop over layers.  The arena is
@@ -13,11 +15,12 @@ from __future__ import annotations
 from typing import Any, Dict
 
 import torch
+import torch.nn.functional as F
 
 from repro_torch.models import moe as moe_mod
 from repro_torch.models.layers import (
-    ParamDef, attn_schema, mlp_apply, mlp_schema, paged_attn_apply,
-    paged_prefill_attn_apply, rmsnorm, stack_schema,
+    ParamDef, attn_apply, attn_schema, mlp_apply, mlp_schema,
+    paged_attn_apply, paged_prefill_attn_apply, rmsnorm, stack_schema,
 )
 
 _PAGED_FAMILIES = ("dense", "moe")
@@ -114,6 +117,88 @@ def lm_init_paged_cache(cfg, batch: int, max_len: int, block_tokens: int = 16,
     shape = (cfg.n_layers, real + 1, block_tokens, K, hd)
     return {"kp": torch.zeros(shape, dtype=dtype, device=device),
             "vp": torch.zeros(shape, dtype=dtype, device=device)}
+
+
+# --------------------------------------------------------------------------
+# One-shot prefill: exact-length prompt forward, then one page write
+# --------------------------------------------------------------------------
+def _paged_swa_later():
+    return NotImplementedError(
+        "ring-packed sliding-window prefill rows are not ported yet: they "
+        "come with the port's slice for paged sliding-window attention "
+        "(the other paged engine planes)")
+
+
+def lm_prefill(params, cfg, tokens):
+    """Forward over whole prompts at their exact length (JAX's
+    ``lm_prefill`` with ``max_len=None``).
+
+    tokens: (B, S) int32, all rows of one length.  Each layer runs causal
+    self-attention over the prompt (``layers.attn_apply``: the
+    ``flash_attention`` kernel on a card), then the FFN; the final norm
+    runs over the whole sequence, as JAX's ``lm_hidden`` does.  Returns
+    (logits (B, V) at position S - 1, cache {"k", "v": (L, B, S, K, hd) in
+    the compute dtype, "cur": S as a 0-d int32}).  Under capacity routing
+    the MoE layers dispatch the whole (B, S) group at once, as in JAX.
+    """
+    require_paged_family(cfg)
+    if cfg.sliding_window:
+        raise _paged_swa_later()
+    S = tokens.shape[1]
+    x = _embed(params, tokens)
+    ks, vs = [], []
+    for i in range(cfg.n_layers):
+        bp = layer_params(params["blocks"], i)
+        h = rmsnorm(x, bp["ln1"], cfg.norm_eps)
+        attn_out, (k, v) = attn_apply(bp["attn"], h, cfg)
+        x = x + attn_out
+        x = _ffn_block(bp, x, cfg)
+        ks.append(k)
+        vs.append(v)
+    x = rmsnorm(x, params["final_norm"], cfg.norm_eps)
+    logits = _logits(params, cfg, x[:, -1:])[:, 0]
+    cur = torch.full((), S, dtype=torch.int32, device=tokens.device)
+    return logits, {"k": torch.stack(ks), "v": torch.stack(vs), "cur": cur}
+
+
+def lm_paged_prefill_write(cfg, pages, k_rows, v_rows, block_ids,
+                           prompt_len: int, skip_tokens: int = 0):
+    """Scatter an admission group's prefilled KV into its pool pages.
+
+    k_rows/v_rows: (L, G, T, K, hd) — the G rows of an ``lm_prefill``
+    cache (T = prompt_len); block_ids: (G * nb,) int page ids, row-major
+    (slot 0's nb blocks, then slot 1's, ...), each run in position order.
+    One fused in-place write installs the whole group, cast to the arena
+    dtype, and touches only the admitted slots' pages; returns the arena.
+
+    ``skip_tokens`` (block-aligned, inside the prompt) drops the leading
+    positions, whose pages a prefix-cache hit shares with other requests;
+    ``block_ids`` then covers only the tail blocks.
+    """
+    L, G, T, K, hd = k_rows.shape
+    bt = pages["kp"].shape[2]
+    nb = block_ids.shape[0] // G
+    S = prompt_len
+    W = cfg.sliding_window
+    if skip_tokens:
+        if W and S > T:
+            raise ValueError("skip_tokens is incompatible with ring-packed "
+                             "sliding-window prefill rows")
+        if skip_tokens % bt or not 0 < skip_tokens < S:
+            raise ValueError(f"skip_tokens must be a block-aligned count "
+                             f"inside the prompt, got {skip_tokens}/{S}")
+        k_rows = k_rows[:, :, skip_tokens:]
+        v_rows = v_rows[:, :, skip_tokens:]
+        S = S - skip_tokens
+        T = T - skip_tokens
+    if W and S > T:
+        raise _paged_swa_later()
+    kp, vp = pages["kp"], pages["vp"]
+    pad = (0, 0, 0, 0, 0, nb * bt - S)       # right-pad positions to nb * bt
+    ids = block_ids.long()
+    kp[:, ids] = F.pad(k_rows, pad).reshape(L, G * nb, bt, K, hd).to(kp.dtype)
+    vp[:, ids] = F.pad(v_rows, pad).reshape(L, G * nb, bt, K, hd).to(vp.dtype)
+    return pages
 
 
 def lm_paged_prefill_chunk(params, cfg, pages, tokens, block_tables,

@@ -1,8 +1,8 @@
-"""Serving runtime on the paged, chunked KV plane (PyTorch counterpart of
+"""Serving runtime on the paged KV plane (PyTorch counterpart of
 ``repro/runtime/server.py``).
 
 ``BatchServer`` is the synchronous tick loop of the JAX engine, restricted
-to the plane every attention family serves on by default:
+to the paged plane with chunked or one-shot prefill:
 
   * requests arrive as wire messages (``core.rpc``) and are billed by the
     SimCXL NIC cost model (``runtime.niccost``);
@@ -10,18 +10,22 @@ to the plane every attention family serves on by default:
   * the KV cache is a pooled page arena indexed by the host-side
     ``KVBlockPager`` block table;
   * a prompt streams in one bucket-padded chunk per tick
-    (``_prefill_step`` -> ``model.paged_prefill_chunk``), and DECODE slots
-    advance one token per tick in one batched ``model.paged_decode_step``
-    (``_decode_tick``).  On a CUDA device both run their attention (and,
-    for the moe family, the expert GEMMs and the gated combine) in the
-    hand-written kernels of ``kernels.ops``; on the CPU in the plain
-    versions.  MoE serves under dropless routing; capacity routing needs
-    one-shot prefill, a later slice.
+    (``_prefill_step`` -> ``model.paged_prefill_chunk``), or, with
+    ``prefill_chunk=0`` (one-shot; what ``auto`` picks for capacity-routed
+    MoE), equal-length prompts are admitted in groups of up to
+    ``prefill_batch``, each group prefilled in one exact-length forward
+    (``model.prefill``) and installed by one page write
+    (``model.paged_prefill_write``, ``_admit_group``);
+  * DECODE slots advance one token per tick in one batched
+    ``model.paged_decode_step`` (``_decode_tick``).
+On a CUDA device the steps run their attention, norms (and, for the moe
+family, the expert GEMMs and the gated combine) in the hand-written
+kernels of ``kernels.ops``; on the CPU in the plain versions.
 
 Every option outside this plane raises, naming the later slice of the port
-that brings it: the dense cache (``paged_kv=False``), one-shot prefill
-(``prefill_chunk=0``), the prefix cache, KV tiering, paged sliding-window
-attention, disaggregated and asyncio engines.
+that brings it: the dense cache (``paged_kv=False``), the prefix cache, KV
+tiering, paged sliding-window attention, disaggregated and asyncio
+engines.
 """
 from __future__ import annotations
 
@@ -101,7 +105,7 @@ def _tree_device(tree) -> Optional[torch.device]:
 
 class BatchServer:
     """Slot-based continuous batching on the paged KV plane: chunked
-    bucketed prefill plus batched paged decode.
+    bucketed or one-shot grouped prefill, plus batched paged decode.
 
     Per-request lifecycle is the scheduler state machine; slot claims go
     through the RAO ticket sequencer; the pager owns the block table of
@@ -115,6 +119,7 @@ class BatchServer:
                  device=None, block_tokens: int = 16,
                  nic_cost: Optional[object] = True,
                  pool: Optional[CoherentMemoryPool] = None,
+                 prefill_batch: int = 1,
                  paged_kv="auto", prefill_chunk="auto",
                  prefill_buckets: int = 4, sync_timers: bool = False,
                  prefix_cache: bool = False, prefix_watermark: float = 0.0,
@@ -136,17 +141,14 @@ class BatchServer:
             prefill_chunk = min(64, max_len) if chunk_invariant else 0
         prefill_chunk = int(prefill_chunk)
         if prefill_chunk < 0:
-            raise ValueError(f"prefill_chunk must be >= 0, got "
-                             f"{prefill_chunk}")
+            raise ValueError(f"prefill_chunk must be >= 0 (0 = one-shot "
+                             f"exact-length prefill), got {prefill_chunk}")
         if prefill_chunk and not chunk_invariant:
             raise ValueError(
                 "chunked prefill needs chunk-invariant routing: "
                 "capacity-factor MoE drops depend on co-resident "
                 "tokens; serve with cfg.moe_routing='dropless' or "
                 "use prefill_chunk=0")
-        if prefill_chunk == 0:
-            raise _later("one-shot exact-length prefill (prefill_chunk=0)",
-                         "the other paged engine planes")
         if prefix_cache or prefix_watermark:
             raise _later("the KV prefix cache (prefix_cache)",
                          "the other paged engine planes")
@@ -174,7 +176,9 @@ class BatchServer:
         self.family = cfg.family
         self.paged = True
         self.prefill_chunk = prefill_chunk
-        self.chunk_buckets = _prefill_buckets(prefill_chunk, prefill_buckets)
+        self.chunk_buckets = _prefill_buckets(prefill_chunk, prefill_buckets) \
+            if prefill_chunk else ()
+        self.prefill_batch = max(1, prefill_batch)
         self.pages = model.init_paged_cache(batch_slots, max_len,
                                             block_tokens, device=self.device)
         kp = self.pages["kp"]
@@ -207,6 +211,8 @@ class BatchServer:
             self.niccost = nic_cost
         # PyTorch runs eagerly: the engine's step functions are the model's
         # plain callables (jit_fns() lists them under the JAX names)
+        self._prefill_exact = model.prefill
+        self._page_write = model.paged_prefill_write
         self._chunk_prefill = model.paged_prefill_chunk
         self._paged_decode = model.paged_decode_step
         # block after each dispatch so the wall-clock stats attribute the
@@ -234,8 +240,12 @@ class BatchServer:
     def jit_fns(self) -> Dict[str, Callable]:
         """Name -> engine step callable (the JAX engine's jit registry
         names; here plain eager functions)."""
-        return {"chunk_prefill": self._chunk_prefill,
-                "paged_decode": self._paged_decode}
+        fns = {"prefill_exact": self._prefill_exact,
+               "paged_decode": self._paged_decode,
+               "page_write": self._page_write}
+        if self.prefill_chunk:
+            fns["chunk_prefill"] = self._chunk_prefill
+        return fns
 
     def _to_device(self, arr: np.ndarray) -> torch.Tensor:
         return torch.from_numpy(np.ascontiguousarray(arr)).to(self.device)
@@ -282,21 +292,65 @@ class BatchServer:
         self.completed_reqs.append(req)
         return encode_response(req.req_id, [])
 
+    def _admit_group(self, reqs: List[Request], now: float):
+        """Prefill a group of equal-prompt-length requests in one
+        exact-length call (B = len(reqs)), then install all their KV with
+        one page write that touches only the admitted slots' pages."""
+        for req in reqs:
+            req.to(RequestState.PREFILL, now)
+        slot_arr = [self.table.bind(req) for req in reqs]
+        toks = np.asarray([r.prompt for r in reqs], np.int32)
+        S = int(toks.shape[1])
+        logits, cache1 = self._prefill_exact(self.params,
+                                             self._to_device(toks))
+        # only the (G,) greedy ids leave the device
+        nxt = torch.argmax(logits, dim=-1).cpu().numpy()
+        t1 = time.perf_counter()
+        for row, req in enumerate(reqs):
+            req.generated.append(int(nxt[row]))
+            req.to(RequestState.DECODE, t1)
+
+        tw = time.perf_counter()
+        ids = [p for slot in slot_arr for p in self.pager.admit(slot, S)]
+        self.pages = self._page_write(
+            self.pages, cache1["k"], cache1["v"],
+            self._to_device(np.asarray(ids, np.int32)), S)
+        if self.sync_timers:
+            self._sync()
+        self.stats["splice_wall_s"] += time.perf_counter() - tw
+        self.stats["prefills"] += len(reqs)
+        self.stats["admitted"] += len(reqs)
+
     def _admit(self, now: float) -> List[bytes]:
-        """Admit from the queue while slots are free.  Each admission binds
-        a slot and streams its prompt in later ticks (no admission-time
-        prefill call, no equal-length grouping)."""
+        """Admit from the queue while slots are free.  Chunked: each
+        admission binds a slot and streams its prompt in later ticks.
+        One-shot: consecutive requests with the same prompt length
+        prefill as one batched call (up to ``prefill_batch``)."""
         failures: List[bytes] = []
-        while self.table.free > 0:
-            req = self.queue.pop_admissible(engine_empty=not self.active,
-                                            write_index=0)
+        group: List[Request] = []
+
+        def flush():
+            if group:
+                self._admit_group(group, now)
+                group.clear()
+
+        while self.table.free > len(group):
+            req = self.queue.pop_admissible(
+                engine_empty=not self.active and not group, write_index=0)
             if req is None:
                 break
             if not req.prompt or req.max_new < 1 or \
                     len(req.prompt) > self.max_len:
                 failures.append(self._fail(req, now))
                 continue
-            self._admit_chunked(req, now)
+            if self.prefill_chunk:
+                self._admit_chunked(req, now)
+                continue
+            if group and (len(group) >= self.prefill_batch
+                          or len(req.prompt) != len(group[0].prompt)):
+                flush()
+            group.append(req)
+        flush()
         return failures
 
     def _admit_chunked(self, req: Request, now: float):
@@ -402,8 +456,9 @@ class BatchServer:
         return min(self.pager.max_blocks, -(-need // 8) * 8)
 
     def step(self) -> List[bytes]:
-        """One scheduler tick: admit from queue, advance chunked prefills
-        by one chunk, one batched decode step over the DECODE slots."""
+        """One scheduler tick: admit from queue (one-shot: prefilling each
+        admission group), advance chunked prefills by one chunk, one
+        batched decode step over the DECODE slots."""
         now = time.perf_counter()
         self.stats["ticks"] += 1
         if self._unbilled_tickets:
@@ -411,7 +466,8 @@ class BatchServer:
             self._unbilled_tickets = 0
         finished = self._admit(now)
         self.stats["admit_wall_s"] += time.perf_counter() - now
-        self._prefill_step()
+        if self.prefill_chunk:
+            self._prefill_step()
         # prefill emits the first token: single-token requests are already
         # complete and must not burn a decode step
         finished += self._harvest(now)
@@ -425,14 +481,16 @@ class BatchServer:
         if not decoding:
             return []
         last = np.zeros((self.slots, 1), np.int32)
-        lens = np.zeros((self.slots,), np.int32)
         for slot, req in decoding.items():
             last[slot, 0] = req.generated[-1] if req.generated else 0
+        # the window starts before the pager's host work, as JAX's does
+        t0 = time.perf_counter()
+        lens = np.zeros((self.slots,), np.int32)
+        for slot, req in decoding.items():
             lens[slot] = req.pos - 1              # tokens resident in pages
             # grow the block list so the incoming token's page exists
             # before the kernel computes its write location
             self.pager.advance(slot, req.pos)
-        t0 = time.perf_counter()
         nb = self._decode_bucket(int(lens.max()) + 1)
         # PREFILLING slots hold live table rows but must be neither
         # attended nor written by the decode step

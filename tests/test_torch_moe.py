@@ -1,6 +1,7 @@
 """The port's MoE slice against the JAX reference: the plain versions of
 the two MoE kernels, ``moe_apply``, the paged steps and the engine of a
-tiny dropless granite-moe, and the refusals of capacity routing.
+tiny dropless granite-moe, and the errors of capacity routing with a
+chunk.
 
 Inputs come from fixed numpy seeds and go to both frameworks as numpy
 arrays.  Tolerances: the plain kernels and ``moe_apply`` within 1e-5 at
@@ -318,8 +319,8 @@ def test_engine_wire_outputs_match_jax(engines, plane):
 
 
 def test_engine_capacity_routing_raises_as_jax():
-    """Capacity routing with a chunk: JAX's ValueError; under auto it needs
-    one-shot prefill, which the port refuses by name."""
+    """Capacity routing with a chunk: JAX's ValueError (under auto it
+    serves one-shot: ``tests/test_torch_oneshot.py``)."""
     jcfg, tcfg = _configs("capacity")
     tmodel = build_model(tcfg)
     with pytest.raises(ValueError, match="chunk-invariant") as tex:
@@ -329,9 +330,6 @@ def test_engine_capacity_routing_raises_as_jax():
         JaxBatchServer(jax_build_model(jcfg), batch_slots=2,
                        max_len=MAX_LEN, nic_cost=None, prefill_chunk=8)
     assert str(tex.value) == str(jex.value)
-    with pytest.raises(NotImplementedError, match="one-shot"):
-        BatchServer(tmodel, batch_slots=2, max_len=MAX_LEN, device="cpu",
-                    nic_cost=None)
 
 
 def test_launcher_serves_granite_on_cpu(capsys):
@@ -343,9 +341,8 @@ def test_launcher_serves_granite_on_cpu(capsys):
 
 
 @pytest.mark.parametrize("argv,words", [
-    (["--arch", ARCH, "--moe-routing", "capacity"], "not ported"),
     (["--moe-routing", "dropless"], "only applies to moe-family"),
-], ids=["capacity", "dense-arch"])
+], ids=["dense-arch"])
 def test_launcher_moe_routing_errors(argv, words, capsys):
     with pytest.raises(SystemExit) as ex:
         serve.main(["--device", "cpu", *argv])

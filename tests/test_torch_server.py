@@ -3,7 +3,8 @@
 Both ``BatchServer``s serve the same ragged trace (the lengths of
 ``tests/test_differential.py``'s ``_trace``) at f32 on the same params;
 the decoded wire outputs must be identical token for token on the four
-chunked planes, with no pages left in use after the drain.  The port also
+chunked planes, with no pages left in use after the drain (the one-shot
+planes are in ``tests/test_torch_oneshot.py``).  The port also
 refuses, by name, every option whose plane is a later slice, and imports
 nothing of JAX or of the JAX package.
 """
@@ -93,7 +94,6 @@ def test_engine_wire_outputs_match_jax(setup, plane):
 
 UNPORTED = {
     "dense-cache": (dict(paged_kv=False), "dense-cache plane"),
-    "one-shot": (dict(prefill_chunk=0), "one-shot"),
     "prefix-cache": (dict(prefix_cache=True), "prefix cache"),
     "tiering": (dict(kv_overcommit=2.0), "tiering"),
     "tiering-near": (dict(kv_near_blocks=4), "tiering"),
@@ -160,11 +160,10 @@ def test_launcher_drains_on_cpu(capsys):
 
 
 @pytest.mark.parametrize("argv", [
-    ["--no-paged-kv"], ["--prefill-chunk", "0"], ["--prefix-cache"],
+    ["--no-paged-kv"], ["--prefix-cache"],
     ["--prefix-watermark", "0.5"], ["--kv-overcommit", "2"],
     ["--kv-near-blocks", "4"], ["--kv-demote-after", "3"], ["--disagg"],
     ["--prefill-slots", "2"], ["--arrival", "poisson"],
-    ["--moe-routing", "capacity", "--arch", "granite-moe-3b-a800m"],
 ], ids=lambda a: a[0].lstrip("-"))
 def test_launcher_refuses_unported_options_by_name(argv, capsys):
     with pytest.raises(SystemExit) as ex:
