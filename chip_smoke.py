@@ -1,16 +1,16 @@
 """Chip smoke test of the PyTorch port: builds the hand-written CUDA
-kernels from this checkout and drives the paged serving engine on one
-card, for the dense family (mistral-nemo-12b) and the moe family
-(granite-moe-3b-a800m), each on the chunked and on the one-shot prefill
-plane.
+kernels from this checkout and drives the serving engine on one card:
+the paged plane for the dense family (mistral-nemo-12b) and the moe
+family (granite-moe-3b-a800m), each with chunked and with one-shot
+prefill, and the dense-cache plane for the hybrid family (zamba2-7b).
 
     python3 chip_smoke.py            # every phase; needs one CUDA card
     python3 chip_smoke.py --quick    # device, build, kernel checks only
-    python3 chip_smoke.py --profile  # also trace the four engines
+    python3 chip_smoke.py --profile  # also trace the five engines
 
 Phases (each prints its own lines and wall time; any failure raises):
   1. device   — card name, and name + power limit from nvidia-smi;
-  2. build    — all six kernels, one nvcc process per source
+  2. build    — all seven kernels, one nvcc process per source
                 (kernels/build.py);
   3. kernels  — each kernel against its plain PyTorch version: the
                 attention kernels at mistral-nemo-12b's shapes (H=32, K=8,
@@ -21,19 +21,27 @@ Phases (each prints its own lines and wall time; any failure raises):
                 dim ragged (5, 130, 130, 130) and a zero-size case;
                 rao_scatter_add at granite's combine
                 shapes (D=1536, M in {320, 20480} random duplicates, and
-                CENTRAL: every update on one row); flash_attention at both
-                models' head shapes (32/8 x 128, 24/8 x 64), S in {17, 64,
-                300}, B in {1, 4}, plus a windowed case; rmsnorm at D in
-                {64, 1536, 5120}, N in {1, 8, 1200}.  Tolerance: the
-                attention kernels |got - plain| <= tol, the others
-                |got - plain| <= tol + tol * |plain|, with tol = 2e-2 in
-                bf16 and 1e-4 in f32 (TF32 off);
+                CENTRAL: every update on one row); flash_attention at the
+                three models' head shapes (32/8 x 128, 24/8 x 64, 32/32 x
+                112), S in {17, 64, 300}, B in {1, 4}, plus a windowed
+                case; rmsnorm at D in {64, 1536, 3584, 5120, 7168}, N in
+                {1, 8, 1200}; ssd_scan (y and final state) at zamba2's
+                heads (h 112, hd 64, S 64) with L a multiple of 128, L
+                ragged, one chunk and several, plus odd small shapes.
+                Tolerance: the attention kernels |got - plain| <= tol, the
+                others |got - plain| <= tol + tol * |plain|, with tol =
+                2e-2 in bf16 and 1e-4 in f32 (TF32 off); ssd_scan 1e-3 in
+                f32 (the JAX suite's test_ssd_scan_sweep), 2e-2 normwise
+                with x in bf16;
   4. tiny     — tiny f32 engines, each on the card (kernels) and on the
                 CPU (plain versions) with identical greedy tokens: dense
                 and dropless MoE on the chunked plane (a ragged trace),
-                dense one-shot with prefill_batch 1 (ragged) and 4, and
-                capacity-routed MoE one-shot with prefill_batch 4 (a trace
-                of equal-length neighbours, so admission groups form);
+                dense one-shot with prefill_batch 1 (ragged) and 4,
+                capacity-routed MoE one-shot with prefill_batch 4, and a
+                5-layer hybrid (2 groups of 2 Mamba2 layers and a tail
+                layer) on the dense-cache plane with prefill_batch 4 (a
+                trace of equal-length neighbours, so admission groups and
+                waves form);
   5. serve    — full-width 40-layer mistral-nemo-12b, chunked and then
                 one-shot (prefill_chunk=0), then (its params freed)
                 full-width 32-layer granite-moe-3b-a800m, dropless chunked
@@ -41,18 +49,24 @@ Phases (each prints its own lines and wall time; any failure raises):
                 random bf16 params from a seed serving 16 wire-encoded
                 requests with 32 new tokens through BatchServer (8 slots,
                 max_len 512; one-shot: prefill_batch 4 and 4 groups of 4
-                equal prompt lengths; chunked: lengths 17-300): every
+                equal prompt lengths; chunked: lengths 17-300), then
+                (freed) full-width 81-layer zamba2-7b on the dense-cache
+                plane (prefill_batch 4, two waves of 8 equal prompt
+                lengths drawn from 17-300, so 4 group calls of 4): every
                 request drains, logits stay finite, and each kernel
                 launched exactly as the ticks say — paged_prefill_attention
                 L per chunk tick, paged_attention L per decode tick,
                 flash_attention L per group call, rmsnorm 2L + 1 per model
                 call, moe_gmm 3L and rao_scatter_add L per model call;
+                zamba2: ssd_scan 81 and flash_attention 13 per group call,
+                rmsnorm 189 per model call, no paged kernel;
   6. measure  — on inputs each main path itself produced, each kernel's
                 time beside its plain version's, one PyTorch library call
                 that computes the same function (never called by the port:
                 scaled_dot_product_attention, torch.bmm, index_add_,
-                F.rms_norm) and its bound at 3.35 TB/s, 989 TFLOP/s bf16
-                (matmul work) and 67 TFLOP/s f32 (elementwise work).
+                F.rms_norm; none for ssd_scan) and its bound at 3.35 TB/s,
+                989 TFLOP/s bf16 (matmul work) and 67 TFLOP/s f32
+                (elementwise and SSD scan work).
 The line before the last is the kernels' JSON record; the last line is
 {"ok": true, "device": {...}}.  Without a card, or without the rest of
 the repository beside it, the script exits non-zero and prints no result.
@@ -79,6 +93,7 @@ from repro_torch.configs import get_config, reduced  # noqa: E402
 from repro_torch.core import rpc as wire  # noqa: E402
 from repro_torch.device import H100_HBM_STREAM_GBs  # noqa: E402
 from repro_torch.kernels import build, ops, ref  # noqa: E402
+from repro_torch.models import transformer  # noqa: E402
 from repro_torch.models.model import build_model  # noqa: E402
 from repro_torch.runtime.server import (  # noqa: E402
     BatchServer, encode_request,
@@ -106,11 +121,15 @@ KERNELS = {
     "rmsnorm": dict(
         source="src/repro_torch/kernels/csrc/rmsnorm.cu",
         replaces="src/repro/kernels/rmsnorm.py:29"),
+    "ssd_scan": dict(
+        source="src/repro_torch/kernels/csrc/ssd_scan.cu",
+        replaces="src/repro/kernels/ssd_scan.py:75"),
 }
 ATTENTION = ("paged_attention", "paged_prefill_attention")
 MOE = ("moe_gmm", "rao_scatter_add")
 ONESHOT = ("flash_attention", "rmsnorm")
 DENSE_ARCH, MOE_ARCH = "mistral-nemo-12b", "granite-moe-3b-a800m"
+HYBRID_ARCH = "zamba2-7b"
 DEV = torch.device("cuda")
 SPIN_CYCLES = 20_000_000         # ~10 ms at the H100's ~2 GHz SM clock
 
@@ -290,6 +309,57 @@ def phase_kernels(errs):
                 errs["paged_prefill_attention"].append(e)
     check_moe_kernels(rng, errs)
     check_oneshot_kernels(rng, errs)
+    check_ssd_kernel(rng, errs)
+
+
+def close_normwise(got, exp, tol):
+    """max |got - exp| <= tol * max |exp|, and finite."""
+    g, e = got.float(), exp.float()
+    return bool(torch.isfinite(g).all()) and \
+        float((g - e).abs().max()) <= tol * float(e.abs().max())
+
+
+def check_ssd_kernel(rng, errs):
+    """ssd_scan's y and final state against the plain chunk math: zamba2's
+    heads (h 112, hd 64, S 64, chunk 128) with L a multiple of 128 (two
+    chunks), L ragged (209: a partial last chunk), one chunk; then small
+    odd shapes (hd and S not multiples of 16, chunk not a power of two).
+    dt = softplus(randn), as the model's projection gives it, or
+    |randn| / 10 as the JAX suite draws it."""
+    def rnd(shape, scale=1.0):
+        return torch.from_numpy(
+            (rng.randn(*shape) * scale).astype(np.float32)).to(DEV)
+    cases = [(2, 256, 112, 64, 64, 128, "softplus"),
+             (4, 209, 112, 64, 64, 128, "softplus"),
+             (2, 128, 112, 64, 64, 128, "small"),
+             (1, 77, 3, 32, 16, 64, "small"),
+             (2, 300, 2, 40, 24, 100, "softplus")]
+    for B, L, h, hd, S, chunk, dts in cases:
+        Bm, Cm = rnd((B, L, S)), rnd((B, L, S))
+        raw = rnd((B, L, h))
+        dt = torch.nn.functional.softplus(raw) if dts == "softplus" \
+            else raw.abs() * 0.1
+        A = -(rnd((h,)).abs() + 0.2) if dts == "small" \
+            else -torch.exp(rnd((h,), 0.5))
+        x32 = rnd((B, L, h, hd))
+        for dtype, tol in ((torch.float32, 1e-3), (torch.bfloat16, 2e-2)):
+            x = x32.to(dtype)
+            before = ops.LAUNCHES["ssd_scan"]
+            y, st = ops.ssd_scan(x, Bm, Cm, dt, A, chunk=chunk)
+            ey, est = ref.ssd_scan(x, Bm, Cm, dt, A, chunk=chunk)
+            torch.cuda.synchronize()
+            e = max(max_err(y, ey), max_err(st, est))
+            check = close if dtype == torch.float32 else close_normwise
+            ok = check(y, ey, tol) and check(st, est, tol) and \
+                ops.LAUNCHES["ssd_scan"] == before + 1
+            print(f"[kernels] ssd_scan x {str(dtype)[6:]} B {B} L {L} h {h} "
+                  f"hd {hd} S {S} chunk {chunk} dt {dts}: max_abs_err "
+                  f"{e:.3g} (y max {float(ey.abs().max()):.3g}, state max "
+                  f"{float(est.abs().max()):.3g}; tol {tol} "
+                  f"{'abs + rel' if dtype == torch.float32 else 'normwise'})")
+            if not ok:
+                raise AssertionError(f"ssd_scan disagrees: {e}")
+            errs["ssd_scan"].append(e)
 
 
 def check_oneshot_kernels(rng, errs):
@@ -299,7 +369,8 @@ def check_oneshot_kernels(rng, errs):
         return torch.from_numpy(
             (rng.randn(*shape) * scale).astype(np.float32)).to(DEV, dtype)
     flash_cases = [(B, S, H, K, hd, 0) for H, K, hd in ((32, 8, 128),
-                                                         (24, 8, 64))
+                                                         (24, 8, 64),
+                                                         (32, 32, 112))
                    for S in (17, 64, 300) for B in (1, 4)]
     flash_cases += [(4, 300, 32, 8, 128, 100)]
     for dtype, tol in ((torch.bfloat16, 2e-2), (torch.float32, 1e-4)):
@@ -320,7 +391,7 @@ def check_oneshot_kernels(rng, errs):
             if not ok:
                 raise AssertionError(f"flash_attention disagrees: {e}")
             errs["flash_attention"].append(e)
-        for D in (64, 1536, 5120):
+        for D in (64, 1536, 3584, 5120, 7168):
             for N in (1, 8, 1200):
                 x = rnd((N, D), dtype)
                 w = rnd((D,), dtype, 0.1)
@@ -429,16 +500,29 @@ TINY = dict(n_layers=2, d_model=32, n_heads=2, n_kv_heads=2, head_dim=16,
             d_ff=64, vocab=128, param_dtype="float32", cache_dtype="float32")
 CHUNKED_KERNELS = ("paged_prefill_attention", "paged_attention", "rmsnorm")
 ONESHOT_KERNELS = ("flash_attention", "paged_attention", "rmsnorm")
+HYBRID_KERNELS = ("ssd_scan", "flash_attention", "rmsnorm")
+
+
+def leaked(srv):
+    """Pages (paged plane) or pool blocks (dense plane) still held after a
+    drain."""
+    kv = srv.kv_stats()
+    if kv["paged_kv"]:
+        return kv["paged"]["pages_in_use"]
+    return kv["blocks_allocated"] - kv["blocks_freed"]
 
 
 @phase("tiny")
 def phase_tiny():
     """Tiny f32 engines on the card (kernels) and on the CPU (plain):
     dense and dropless MoE (8 experts, top-2) chunked, then dense one-shot
-    with prefill_batch 1 and 4 and capacity-routed MoE one-shot with
-    prefill_batch 4."""
+    with prefill_batch 1 and 4, capacity-routed MoE one-shot with
+    prefill_batch 4, and the 5-layer hybrid (layout 2 x 2 + 1 tail) on the
+    dense-cache plane with prefill_batch 4."""
     dense = reduced(get_config(DENSE_ARCH)).replace(**TINY)
     moe = reduced(get_config(MOE_ARCH)).replace(**TINY)
+    hybrid = reduced(get_config(HYBRID_ARCH)).replace(**dict(TINY,
+                                                             n_layers=5))
     engines = (
         ("dense chunked", dense, {}, tiny_trace, 3, CHUNKED_KERNELS),
         ("moe dropless chunked", moe.replace(moe_routing="dropless"), {},
@@ -450,6 +534,8 @@ def phase_tiny():
          grouped_trace, 4, ONESHOT_KERNELS),
         ("moe capacity one-shot pfb4", moe.replace(moe_routing="capacity"),
          dict(prefill_batch=4), grouped_trace, 4, ONESHOT_KERNELS + MOE),
+        ("hybrid dense pfb4", hybrid, dict(prefill_batch=4), grouped_trace,
+         4, HYBRID_KERNELS),
     )
     for label, cfg, kw, make_trace, slots, kernels in engines:
         model = build_model(cfg)
@@ -463,11 +549,15 @@ def phase_tiny():
                               device=dev, nic_cost=None, **kw)
             outs[dev] = drain_outputs(srv, trace)
             launched = {k: ops.LAUNCHES[k] - before[k] for k in before}
-            if srv.kv_stats()["paged"]["pages_in_use"]:
+            if leaked(srv):
                 raise AssertionError(f"{label} {dev}: pages leaked")
             if dev == "cuda" and not all(launched[k] for k in kernels):
                 raise AssertionError(f"tiny {label} skipped a kernel: "
                                      f"{launched}")
+            if cfg.family == "hybrid" and \
+                    any(launched[k] for k in ATTENTION + MOE):
+                raise AssertionError(f"the tiny {label} engine launched a "
+                                     f"paged or MoE kernel: {launched}")
             if dev == "cpu" and any(launched.values()):
                 raise AssertionError(f"the CPU {label} engine launched a "
                                      f"kernel")
@@ -488,17 +578,19 @@ def _tree_to(tree, dev):
 
 
 class Recorder:
-    """Keeps the arguments of every layer-0 call of a kernel wrapper during
-    the main path (a reference, not a copy; no device sync)."""
+    """Keeps the arguments of one call of a kernel wrapper in every model
+    call of the main path: call ``offset`` of each run of ``period``
+    (layer 0's, unless an offset picks another) — a reference, not a copy;
+    no device sync."""
 
-    def __init__(self, name, n_layers):
-        self.name, self.n_layers = name, n_layers
+    def __init__(self, name, period, offset=0):
+        self.name, self.period, self.offset = name, period, offset
         self.fn = getattr(ops, name)
         self.calls = []
         self.n = 0
 
     def __call__(self, *args, **kw):
-        if self.n % self.n_layers == 0:
+        if self.n % self.period == self.offset:
             self.calls.append((args, kw))
         self.n += 1
         return self.fn(*args, **kw)
@@ -519,22 +611,37 @@ PATHS = {
     "granite chunked": (MOE_ARCH, "dropless chunked", "dropless", {}),
     "granite one-shot": (MOE_ARCH, "capacity one-shot", "capacity",
                          dict(prefill_batch=4)),
+    "zamba2 dense": (HYBRID_ARCH, "dense", None, dict(prefill_batch=4)),
 }
+
+
+def norms_per_call(cfg):
+    """RMSNorms of one model call: ln1 and ln2 of each attention block, a
+    pre-norm and a gated norm per Mamba2 layer (hybrid), the final norm."""
+    if cfg.family == "hybrid":
+        return 2 * transformer.hybrid_layout(cfg)[0] + 2 * cfg.n_layers + 1
+    return 2 * cfg.n_layers + 1
 
 
 def expected_launches(cfg, st, groups):
     """Each kernel's launches on the main path, from the engine's ticks
     and its one-shot group calls: every model call (chunk tick, decode
-    tick, group call) runs 2L + 1 norms and, for moe, 3L expert GEMMs and
-    L combines."""
+    tick, group call) runs ``norms_per_call`` norms and, for moe, 3L
+    expert GEMMs and L combines; hybrid group calls run one flash
+    attention per group and one SSD scan per Mamba2 layer, and its decode
+    ticks neither (dense-cache decode attention is plain PyTorch)."""
     L, chunks, decodes = cfg.n_layers, st["prefill_chunks"], \
         st["decode_steps"]
     calls = chunks + decodes + groups
     exp = {"paged_prefill_attention": L * chunks,
            "paged_attention": L * decodes,
            "flash_attention": L * groups,
-           "rmsnorm": (2 * L + 1) * calls,
-           "moe_gmm": 0, "rao_scatter_add": 0}
+           "rmsnorm": norms_per_call(cfg) * calls,
+           "moe_gmm": 0, "rao_scatter_add": 0, "ssd_scan": 0}
+    if cfg.family == "hybrid":
+        exp["paged_attention"] = 0
+        exp["flash_attention"] = transformer.hybrid_layout(cfg)[0] * groups
+        exp["ssd_scan"] = L * groups
     if cfg.family == "moe":
         exp["moe_gmm"] = 3 * L * calls
         exp["rao_scatter_add"] = L * calls
@@ -542,7 +649,7 @@ def expected_launches(cfg, st, groups):
 
 
 @phase("serve")
-def phase_serve(path, seed=0):
+def phase_serve(path, card, seed=0):
     arch, label, routing, kw = PATHS[path]
     cfg = get_config(arch)
     if routing is not None:
@@ -556,6 +663,10 @@ def phase_serve(path, seed=0):
     ffn = (f"{cfg.n_experts} experts top-{cfg.top_k} d_ff_expert "
            f"{cfg.d_ff_expert}" if cfg.family == "moe"
            else f"d_ff {cfg.d_ff}")
+    if cfg.family == "hybrid":
+        ffn += (f", Mamba2 d_inner {cfg.d_inner} ({cfg.n_ssm_heads} heads x "
+                f"{cfg.ssm_head_dim}, state {cfg.ssm_state}), layout "
+                f"{transformer.hybrid_layout(cfg)}")
     print(f"[serve] {cfg.name}: {cfg.n_layers} layers, d_model "
           f"{cfg.d_model}, heads {cfg.n_heads}/{cfg.n_kv_heads}, hd "
           f"{cfg.head_dim}, {ffn}, vocab {cfg.vocab}; "
@@ -566,7 +677,9 @@ def phase_serve(path, seed=0):
     del params
     oneshot = srv.prefill_chunk == 0
     rng = np.random.RandomState(seed)
-    if oneshot:       # 4 groups of 4 equal prompt lengths, back to back
+    if not srv.paged:   # 2 waves of 8 equal prompt lengths (groups of 4)
+        plens = np.repeat(rng.randint(17, 301, size=2), 8)
+    elif oneshot:     # 4 groups of 4 equal prompt lengths, back to back
         plens = np.repeat(rng.randint(17, 301, size=4), 4)
     else:
         plens = rng.randint(17, 301, size=16)
@@ -584,17 +697,37 @@ def phase_serve(path, seed=0):
                 rows.append(lg.shape[0])
             return lg, out
         return run
-    srv._paged_decode = checked(srv._paged_decode)
-    srv._chunk_prefill = checked(srv._chunk_prefill)
-    srv._prefill_exact = checked(srv._prefill_exact, group_rows)
+    admit_s = []                # host time of the pager's admissions
+
+    def timed_admit(admit):
+        def run(*a):
+            t = time.perf_counter()
+            out = admit(*a)
+            admit_s.append(time.perf_counter() - t)
+            return out
+        return run
+    srv.pager.admit = timed_admit(srv.pager.admit)
+    if srv.paged:
+        srv._paged_decode = checked(srv._paged_decode)
+        srv._chunk_prefill = checked(srv._chunk_prefill)
+        srv._prefill_exact = checked(srv._prefill_exact, group_rows)
+    else:
+        srv._decode = checked(srv._decode)
+        srv._prefill = checked(srv._prefill, group_rows)
 
     # record layer 0's call of each kernel in every model call (moe_gmm:
-    # its first projection, the gate; rmsnorm: ln1)
+    # its first projection, the gate; rmsnorm: ln1, and on the hybrid the
+    # gated norm of the first Mamba2 layer, the widest)
     L = cfg.n_layers
-    periods = {"paged_attention": L, "paged_prefill_attention": L,
-               "flash_attention": L, "rmsnorm": 2 * L + 1,
-               "moe_gmm": 3 * L, "rao_scatter_add": L}
-    recorders = [Recorder(name, n) for name, n in periods.items()]
+    periods = {"paged_attention": (L, 0), "paged_prefill_attention": (L, 0),
+               "flash_attention": (L, 0), "rmsnorm": (2 * L + 1, 0),
+               "moe_gmm": (3 * L, 0), "rao_scatter_add": (L, 0),
+               "ssd_scan": (L, 0)}
+    if cfg.family == "hybrid":
+        periods["flash_attention"] = (transformer.hybrid_layout(cfg)[0], 0)
+        periods["rmsnorm"] = (norms_per_call(cfg), 3)
+    recorders = [Recorder(name, n, off)
+                 for name, (n, off) in periods.items()]
     torch.cuda.synchronize()
     ops.reset_launches()
     t0 = time.perf_counter()
@@ -617,35 +750,41 @@ def phase_serve(path, seed=0):
     print(f"[serve] {name}: {len(outs)}/16 drained, {st['failed']} failed, "
           f"{st['ticks']} ticks ({groups} group calls of {group_rows} rows, "
           f"{st['prefill_chunks']} chunk ticks, {st['decode_steps']} decode "
-          f"ticks) in {wall:.2f} s; peak memory {peak:.2f} GiB")
+          f"ticks) in {wall:.2f} s; peak memory {peak:.2f} GiB [{card}]")
     prompt_toks = int(plens.sum())
     if oneshot:
         # the group forwards run inside admission; splice_wall_s holds
         # only the page writes (as in the JAX engine)
         print(f"[serve] {name} prefill: {prompt_toks} tokens in "
               f"{st['admit_wall_s']:.3f} s of admission = "
-              f"{prompt_toks / st['admit_wall_s']:.1f} tok/s (page writes "
-              f"{st['splice_wall_s']:.4f} s)")
+              f"{prompt_toks / st['admit_wall_s']:.1f} tok/s ("
+              f"{'page writes' if srv.paged else 'splices'} "
+              f"{st['splice_wall_s']:.4f} s, of which the pager's "
+              f"{len(admit_s)} admissions {sum(admit_s):.4f} s on the host; "
+              f"{srv.pager.per_token_bytes} pool bytes a token) [{card}]")
     else:
         print(f"[serve] {name} prefill: {prompt_toks} tokens in "
               f"{st['splice_wall_s']:.3f} s of chunk ticks = "
-              f"{prompt_toks / st['splice_wall_s']:.1f} tok/s")
+              f"{prompt_toks / st['splice_wall_s']:.1f} tok/s [{card}]")
     print(f"[serve] {name} decode: {st['decode_tokens']} tokens in "
           f"{st['decode_wall_s']:.3f} s = "
-          f"{st['decode_tokens'] / st['decode_wall_s']:.1f} tok/s")
+          f"{st['decode_tokens'] / st['decode_wall_s']:.1f} tok/s [{card}]")
     expected = expected_launches(cfg, st, groups)
     print(f"[serve] {name} launches {launches}; expected {expected}")
     if len(outs) != 16 or st["failed"] or \
             any(len(v) != 32 for v in outs.values()):
         raise AssertionError(f"requests not drained: {st}")
-    if srv.kv_stats()["paged"]["pages_in_use"]:
+    if leaked(srv):
         raise AssertionError("pages leaked")
     if not bool(torch.stack(finite).all()):
         raise AssertionError("non-finite logits on the main path")
     if oneshot and group_rows != [4] * 4:
         raise AssertionError(f"admission groups did not form: {group_rows}")
-    required = (ONESHOT_KERNELS if oneshot else CHUNKED_KERNELS) + \
-        (MOE if cfg.family == "moe" else ())
+    if cfg.family == "hybrid":
+        required = HYBRID_KERNELS
+    else:
+        required = (ONESHOT_KERNELS if oneshot else CHUNKED_KERNELS) + \
+            (MOE if cfg.family == "moe" else ())
     if launches != expected or not all(launches[k] for k in required):
         raise AssertionError(f"launch counts do not match ticks: "
                              f"{launches} vs {expected}")
@@ -965,6 +1104,70 @@ def phase_measure_oneshot(recs, errs, name):
     return out
 
 
+def ssd_work(x, Bm, A, chunk):
+    """Bytes and f32 operations of one ssd_scan call.  Bytes: x, B, C, dt
+    and A read once, y and the final state written once.  Operations,
+    counted for this call's L chunk by chunk (Lc steps, P = Lc (Lc + 1) / 2
+    causal pairs): C.B^T once per (row, chunk), 2 S per pair, since it does
+    not depend on the head; then per (row, head) the decay and dt of each
+    pair (3), the intra-chunk product (2 hd per pair), the inter-chunk
+    product and its scale (Lc hd (2 S + 1)), the state's weights, update
+    and decay (Lc hd + 2 Lc S hd + S hd); an exp counts as one."""
+    B, L, h, hd = x.shape
+    S = Bm.shape[-1]
+    nbytes = x.numel() * x.element_size() \
+        + 4 * (2 * B * L * S + B * L * h + h) \
+        + 4 * (B * L * h * hd + B * h * hd * S)
+    n_ops = 0
+    for t0 in range(0, L, chunk):
+        Lc = min(chunk, L - t0)
+        pairs = Lc * (Lc + 1) // 2
+        per_head = pairs * (3 + 2 * hd) + Lc * hd * (2 * S + 1) \
+            + Lc * hd + 2 * Lc * S * hd + S * hd
+        n_ops += B * 2 * S * pairs + B * h * per_head
+    return nbytes, n_ops
+
+
+@phase("measure")
+def phase_measure_ssd(recs, errs):
+    """Time ssd_scan on the zamba2 path's own inputs (layer 0's call in
+    its smallest and its largest group call), cold L2, beside the plain
+    version; no single PyTorch call computes an SSD scan (library: none)."""
+    flush = torch.empty(256 << 20, dtype=torch.uint8, device=DEV)
+    sized = sorted(recs["ssd_scan"], key=lambda c: c[0][0].shape[1])
+    out = {}
+    for label, (args, kw) in (("smallest", sized[0]), ("max", sized[-1])):
+        x, Bm, Cm, dt, A = args
+        nbytes, n_ops = ssd_work(x, Bm, A, kw["chunk"])
+        run = partial(ops.ssd_scan, *args, **kw)
+        plain = partial(ref.ssd_scan, *args, **kw)
+        y, st = run()
+        ey, est = plain()
+        torch.cuda.synchronize()
+        err = max(max_err(y, ey), max_err(st, est))
+        if not (close(y, ey, 1e-3) and close(st, est, 1e-3)):
+            raise AssertionError(f"ssd_scan disagrees on main-path inputs: "
+                                 f"{err}")
+        errs["ssd_scan"].append(err)
+        k_ms = time_ms(run, 20, flush)
+        p_ms = time_ms(plain, 5, flush)
+        t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+        t_ops = n_ops / F32_FLOPS * 1e3
+        bound = max(t_bytes, t_ops)
+        print(f"[measure] ssd_scan ({label} group call) on main-path inputs "
+              f"x {tuple(x.shape)} {str(x.dtype)[6:]} B/C "
+              f"{tuple(Bm.shape)} chunk {kw['chunk']}: kernel {k_ms:.4f} ms, "
+              f"plain {p_ms:.4f} ms, library: none; bound {bound:.4f} ms "
+              f"({nbytes} bytes -> {t_bytes:.4f} ms, {n_ops} f32 ops -> "
+              f"{t_ops:.4f} ms); max_abs_err {err:.3g}")
+        if label == "max":
+            out["ssd_scan"] = dict(ms=k_ms, plain_ms=p_ms, library_ms=None,
+                                   bound_ms=float(bound),
+                                   bound_by="bytes" if t_bytes >= t_ops
+                                   else "operations")
+    return out
+
+
 def _device_us(evt):
     for attr in ("self_device_time_total", "self_cuda_time_total"):
         if hasattr(evt, attr):
@@ -979,6 +1182,7 @@ PROFILE_PARTS = (
     ("flash_attention", ("flash_attention",)),
     ("rmsnorm", ("rmsnorm",)),
     ("moe_gmm", ("moe_gmm",)),
+    ("ssd_scan", ("ssd_scan",)),
     ("rao_scatter_add", ("scatter_add_kernel", "widen_kernel",
                          "narrow_kernel")),
     ("cuBLAS gemm", ("gemm", "xmma", "cutlass", "nvjet")),
@@ -988,9 +1192,10 @@ PROFILE_PARTS = (
 @phase("profile")
 def phase_profile(srv, seed=1):
     """Device time by kernel, and the device's busy share, over one chunk
-    tick (8 slots x 64 tokens; one-shot: the admission tick, two group
-    calls of 4 x 200 tokens and a decode) and three decode ticks (8
-    slots) of the full-width engine, traced with torch.profiler."""
+    tick (8 slots x 64 tokens; one-shot and dense-cache: the admission
+    tick, two group calls of 4 x 200 tokens and a decode) and three decode
+    ticks (8 slots) of the full-width engine, traced with
+    torch.profiler."""
     from torch.profiler import ProfilerActivity, profile
     rng = np.random.RandomState(seed)
     vocab = srv.model.cfg.vocab
@@ -1040,16 +1245,16 @@ def main(argv=None):
                     help="device, build and kernel phases only; prints no "
                          "result line")
     ap.add_argument("--profile", action="store_true",
-                    help="also trace one prefill tick and three decode "
-                         "ticks of each full-width engine with "
-                         "torch.profiler")
+                    help="also trace one prefill (or admission) tick and "
+                         "three decode ticks of each full-width engine "
+                         "with torch.profiler")
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False; this script "
               "needs a CUDA card", file=sys.stderr)
         return 2
     t_all = time.perf_counter()
-    kind, _ = phase_device()
+    kind, card = phase_device()
     phase_build()
     errs = {name: [] for name in KERNELS}
     phase_kernels(errs)
@@ -1057,23 +1262,30 @@ def main(argv=None):
         return 0
     phase_tiny()
     by_path = {}
-    name, by_path[name], recs, srv = phase_serve("mistral chunked")
+    name, by_path[name], recs, srv = phase_serve("mistral chunked", card)
     meas = phase_measure(recs, errs)
     if args.profile:
         phase_profile(srv)
     del srv, recs                      # free the arena and the params
-    name, by_path[name], recs, srv = phase_serve("mistral one-shot")
+    name, by_path[name], recs, srv = phase_serve("mistral one-shot", card)
     meas.update(phase_measure_oneshot(recs, errs, name))
     if args.profile:
         phase_profile(srv)
     del srv, recs                      # free mistral's 24.5 GB of params
     torch.cuda.empty_cache()
-    name, by_path[name], recs, srv = phase_serve("granite chunked")
+    name, by_path[name], recs, srv = phase_serve("granite chunked", card)
     meas.update(phase_measure_moe(recs, errs))
     if args.profile:
         phase_profile(srv)
     del srv, recs
-    name, by_path[name], recs, srv = phase_serve("granite one-shot")
+    name, by_path[name], recs, srv = phase_serve("granite one-shot", card)
+    phase_measure_oneshot(recs, errs, name)
+    if args.profile:
+        phase_profile(srv)
+    del srv, recs
+    torch.cuda.empty_cache()
+    name, by_path[name], recs, srv = phase_serve("zamba2 dense", card)
+    meas.update(phase_measure_ssd(recs, errs))
     phase_measure_oneshot(recs, errs, name)
     if args.profile:
         phase_profile(srv)

@@ -13,6 +13,7 @@ ARCH_MODULES = [
     # slices
     "granite_moe_3b_a800m",
     "mistral_nemo_12b",
+    "zamba2_7b",
 ]
 
 _loaded = False

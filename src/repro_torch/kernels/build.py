@@ -3,8 +3,8 @@
 Every kernel source (``csrc/paged_attention.cu``,
 ``csrc/paged_prefill_attention.cu``, ``csrc/moe_gmm.cu``,
 ``csrc/rao_scatter.cu``, ``csrc/flash_attention.cu``,
-``csrc/rmsnorm.cu``) compiles in its own ``nvcc`` process, all
-started together, and one more ``nvcc`` call links the objects into a
+``csrc/rmsnorm.cu``, ``csrc/ssd_scan.cu``) compiles in its own ``nvcc``
+process, all started together, and one more ``nvcc`` call links the objects into a
 single shared library with a plain C interface, loaded with ``ctypes`` —
 no PyTorch headers, so the build takes seconds, not minutes.  The library
 lands in ``kernels/_build/`` (listed in ``.gitignore``; override with
@@ -28,7 +28,8 @@ from typing import Optional
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 SOURCES = ("paged_attention.cu", "paged_prefill_attention.cu", "moe_gmm.cu",
-           "rao_scatter.cu", "flash_attention.cu", "rmsnorm.cu")
+           "rao_scatter.cu", "flash_attention.cu", "rmsnorm.cu",
+           "ssd_scan.cu")
 HEADERS = ("paged_common.cuh",)
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-Xcompiler", "-fPIC", "-lineinfo", "-Xptxas", "-v")
@@ -117,6 +118,10 @@ def _bind(lib: ctypes.CDLL) -> ctypes.CDLL:
     lib.rmsnorm_launch.argtypes = [i, p, p, p, ctypes.c_longlong, i, f, p]
     #                              dtype x w out N D eps stream
     lib.rmsnorm_launch.restype = i
+    lib.ssd_scan_launch.argtypes = [i, p, p, p, p, p, p, p,
+                                    i, i, i, i, i, i, p]
+    #                  dtype x Bm Cm dt A y state B L h hd S chunk stream
+    lib.ssd_scan_launch.restype = i
     return lib
 
 

@@ -1,6 +1,6 @@
 """Public wrappers for the hand-written kernels: paged decode and
 chunked-prefill attention, the prompt forward's flash attention, RMSNorm,
-the grouped expert matmul and the RAO scatter-add.
+the grouped expert matmul, the RAO scatter-add and the chunked SSD scan.
 
 One wrapper per kernel.  The device of the inputs picks the path, and
 nothing else does:
@@ -25,10 +25,13 @@ from repro_torch.kernels import build, ref
 LAUNCHES: Dict[str, int] = {"paged_attention": 0,
                             "paged_prefill_attention": 0,
                             "moe_gmm": 0, "rao_scatter_add": 0,
-                            "flash_attention": 0, "rmsnorm": 0}
+                            "flash_attention": 0, "rmsnorm": 0,
+                            "ssd_scan": 0}
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 MAX_HEAD_DIM = 256
 MAX_GROUP = 32          # query heads per kv head: one CTA's softmax rows
+MAX_SSD_CHUNK = 128     # ssd_scan: one warp's cumsum, 4 steps a lane
+SMEM_LIMIT = 232448     # opt-in shared memory of one H100 CTA (227 KB)
 
 
 def reset_launches():
@@ -323,3 +326,65 @@ def rmsnorm(x, w, eps: float = 1e-5):
         raise RuntimeError(f"rmsnorm kernel launch failed: CUDA error {rc}")
     LAUNCHES["rmsnorm"] += 1
     return out
+
+
+def _ssd_smem_bytes(chunk: int, hd: int, S: int) -> int:
+    """Shared memory of one ``ssd_scan`` CTA (csrc/ssd_scan.cu): the
+    state, C, B^T, x and the masked C.B^T of one chunk, dt and its
+    cumsum, in f32 (rows padded by one word against bank conflicts)."""
+    return 4 * (S * hd + chunk * (S + 1) + S * (chunk + 1) + chunk * hd
+                + chunk * (chunk + 1) + 2 * chunk)
+
+
+def ssd_scan(x, Bm, Cm, dt, A, *, chunk: int = 128):
+    """Chunked Mamba2/SSD scan: x (B, L, h, hd) float32 or bfloat16; Bm,
+    Cm (B, L, S), dt (B, L, h) and A (h,) float32.  Any L (a ragged last
+    chunk counts as dt = 0 past L).  Returns (y (B, L, h, hd) f32, final
+    state (B, h, hd, S) f32).  See ``kernels.ref.ssd_scan``."""
+    if x.device.type == "cpu":
+        return ref.ssd_scan(x, Bm, Cm, dt, A, chunk=chunk)
+    if x.device.type != "cuda":
+        raise ValueError(f"ssd_scan: no kernel for {x.device}")
+    for name, t in (("Bm", Bm), ("Cm", Cm), ("dt", dt), ("A", A)):
+        if t.device != x.device:
+            raise ValueError(f"ssd_scan: {name} on {t.device}, x on "
+                             f"{x.device}")
+        if t.dtype != torch.float32:
+            raise TypeError(f"ssd_scan: {name} must be float32, got "
+                            f"{t.dtype}")
+        if not t.is_contiguous():
+            raise ValueError(f"ssd_scan: {name} must be contiguous")
+    if x.dtype not in _DTYPES:
+        raise TypeError(f"ssd_scan: x dtype {x.dtype} unsupported (float32 "
+                        f"or bfloat16)")
+    if not x.is_contiguous():
+        raise ValueError("ssd_scan: x must be contiguous")
+    if x.dim() != 4:
+        raise ValueError(f"ssd_scan: x {tuple(x.shape)} is not (B, L, h, hd)")
+    B, L, h, hd = x.shape
+    S = Bm.shape[-1] if Bm.dim() == 3 else -1
+    if Bm.shape != (B, L, S) or Cm.shape != (B, L, S) \
+            or dt.shape != (B, L, h) or A.shape != (h,):
+        raise ValueError(f"ssd_scan: shapes Bm {tuple(Bm.shape)}, Cm "
+                         f"{tuple(Cm.shape)}, dt {tuple(dt.shape)}, A "
+                         f"{tuple(A.shape)} do not match x "
+                         f"{tuple(x.shape)}")
+    if not 1 <= chunk <= MAX_SSD_CHUNK:
+        raise ValueError(f"ssd_scan: chunk {chunk} not in [1, "
+                         f"{MAX_SSD_CHUNK}]")
+    if 0 in (hd, S) or _ssd_smem_bytes(chunk, hd, S) > SMEM_LIMIT:
+        raise ValueError(f"ssd_scan: chunk {chunk}, hd {hd}, S {S} need "
+                         f"{_ssd_smem_bytes(chunk, hd, S)} bytes of shared "
+                         f"memory (limit {SMEM_LIMIT})")
+    y = torch.empty((B, L, h, hd), dtype=torch.float32, device=x.device)
+    st = torch.zeros((B, h, hd, S), dtype=torch.float32, device=x.device)
+    if 0 in (B, L, h):
+        return y, st
+    rc = build.load().ssd_scan_launch(
+        _DTYPES[x.dtype], x.data_ptr(), Bm.data_ptr(), Cm.data_ptr(),
+        dt.data_ptr(), A.data_ptr(), y.data_ptr(), st.data_ptr(),
+        B, L, h, hd, S, int(chunk), _stream_ptr(x.device))
+    if rc:
+        raise RuntimeError(f"ssd_scan kernel launch failed: CUDA error {rc}")
+    LAUNCHES["ssd_scan"] += 1
+    return y, st

@@ -6,7 +6,9 @@ scores and softmax, output in ``q.dtype``; for ``flash_attention`` the
 same over the prompt's own keys, read per kv head (no repeat to H heads);
 for ``moe_gmm`` an f32 einsum cast to ``xe.dtype``; for
 ``rao_scatter_add`` an accumulating index put in f32, cast to the table's
-dtype; for ``rmsnorm`` the f32 formula of ``repro/models/layers.py``.  The CPU path of ``kernels.ops`` and
+dtype; for ``rmsnorm`` the f32 formula of ``repro/models/layers.py``; for
+``ssd_scan`` the chunk math of ``repro/models/ssm.py``'s ``mamba_apply``
+(which also yields the final state).  The CPU path of ``kernels.ops`` and
 the kernel-vs-plain comparison in ``chip_smoke.py`` use these; the
 serving path on a card never does.
 """
@@ -15,6 +17,7 @@ from __future__ import annotations
 import math
 
 import torch
+import torch.nn.functional as F
 
 NEG_INF = -1e30
 
@@ -149,6 +152,51 @@ def paged_prefill_attention(q, k_pages, v_pages, block_tables, ctx_lens,
     out = out + torch.einsum("bkgcu,bukd->bckgd", w[..., nb * bt:],
                              v_new.float())
     return out.reshape(B, C, H, hd).to(q.dtype)
+
+
+def ssd_scan(x, Bm, Cm, dt, A, *, chunk: int = 128):
+    """Chunked Mamba2/SSD scan, the chunk math of ``mamba_apply``
+    (``repro/models/ssm.py``).
+
+    x: (B, L, h, hd); Bm, Cm: (B, L, S) f32; dt: (B, L, h) f32; A: (h,)
+    f32, negative.  Any L: the last chunk is zero-padded, and a padded
+    step (dt = 0) neither decays nor adds.  Per chunk, with ``acs`` the
+    inclusive cumsum of dt * A:
+    ``y_t = sum_{s<=t} exp(acs_t - acs_s) dt_s (C_t . B_s) x_s
+    + exp(acs_t) C_t . st^T`` and
+    ``st <- st exp(acs_end) + sum_s exp(acs_end - acs_s) dt_s x_s B_s^T``,
+    the upper triangle masked to -inf before the exp.  Returns (y (B, L,
+    h, hd) f32, final state (B, h, hd, S) f32).
+    """
+    Bsz, L, h, hd = x.shape
+    S = Bm.shape[-1]
+    nC = -(-L // chunk)
+    pad = nC * chunk - L
+    xf = F.pad(x.float(), (0, 0, 0, 0, 0, pad))
+    Bf = F.pad(Bm.float(), (0, 0, 0, pad))
+    Cf = F.pad(Cm.float(), (0, 0, 0, pad))
+    dtf = F.pad(dt.float(), (0, 0, 0, pad))
+    A = A.float()
+    tri = torch.ones(chunk, chunk, dtype=torch.bool, device=x.device).tril()
+    st = torch.zeros((Bsz, h, hd, S), dtype=torch.float32, device=x.device)
+    ys = []
+    for c in range(nC):
+        sl = slice(c * chunk, (c + 1) * chunk)
+        xb, Bb, Cb, dtb = xf[:, sl], Bf[:, sl], Cf[:, sl], dtf[:, sl]
+        acs = torch.cumsum(dtb * A, dim=1)                      # (B, C, h)
+        decay = acs[:, :, None, :] - acs[:, None, :, :]         # (B, t, s, h)
+        decay = decay.masked_fill(~tri[None, :, :, None], -math.inf)
+        CB = torch.einsum("btn,bsn->bts", Cb, Bb)
+        M = CB[..., None] * torch.exp(decay) * dtb[:, None, :, :]
+        y = torch.einsum("btsh,bshd->bthd", M, xb)
+        y = y + torch.einsum("btn,bhdn,bth->bthd", Cb, st, torch.exp(acs))
+        wts = torch.exp(acs[:, -1:, :] - acs) * dtb              # (B, C, h)
+        st = st * torch.exp(acs[:, -1, :])[:, :, None, None] + \
+            torch.einsum("bsh,bshd,bsn->bhdn", wts, xb, Bb)
+        ys.append(y)
+    if not ys:
+        return xf.new_zeros((Bsz, 0, h, hd)), st
+    return torch.cat(ys, dim=1)[:, :L], st
 
 
 def moe_gmm(xe, w):

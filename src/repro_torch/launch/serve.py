@@ -1,12 +1,14 @@
 """Serving launcher: batched requests through the Cohet RPC front-end, on
-the port's paged KV engine.
+the port's serving engine.
 
 ``python -m repro_torch.launch.serve --requests 8`` serves a reduced
 mistral-nemo-12b (``--arch granite-moe-3b-a800m``: a reduced granite MoE,
-dropless routing unless ``--moe-routing capacity``), as the JAX launcher
+dropless routing unless ``--moe-routing capacity``; ``--arch zamba2-7b``:
+a reduced zamba2 hybrid on the dense-cache plane), as the JAX launcher
 does, on the CUDA card (``--device cpu`` for the plain PyTorch path),
 submits wire-encoded requests, drains them through chunked
-(``--prefill-chunk 0``: one-shot) prefill and batched paged decode,
+(``--prefill-chunk 0``: one-shot) prefill and batched paged decode (the
+hybrid: one-shot prefill into the dense cache and batched dense decode),
 and reports tokens, scheduler stats and the SimCXL-projected CXL-NIC vs
 PCIe-NIC host cost.  The options of the JAX launcher that belong to
 planes not ported yet are accepted by name and refused with the slice
@@ -37,7 +39,6 @@ def _refuse_unported(ap, args):
     checks = [
         (args.arrival != "all-at-once", f"--arrival {args.arrival}",
          "the asyncio engine (other paged engine planes)"),
-        (args.no_paged_kv, "--no-paged-kv", "the dense-cache plane"),
         (args.prefix_cache, "--prefix-cache",
          "the prefix cache (other paged engine planes)"),
         (bool(args.prefix_watermark), "--prefix-watermark",
@@ -109,6 +110,10 @@ def main(argv=None):
                  f"{args.shared_prefix_len}")
 
     cfg = reduced(get_config(args.arch))
+    if args.no_paged_kv and cfg.family != "hybrid":
+        ap.error(f"--no-paged-kv is not ported yet for {args.arch} "
+                 f"({cfg.family}): it comes with the port's slice for the "
+                 f"dense-cache plane of the dense family")
     if cfg.family == "moe":
         # serving default: dropless routing, so moe joins the chunked
         # bucketed prefill pipeline; --moe-routing capacity restores the
@@ -132,11 +137,16 @@ def main(argv=None):
         sys.exit(2)
     max_len = args.shared_prefix_len + args.prompt_len + args.max_new + 2
     gen = torch.Generator(device=device).manual_seed(args.seed)
-    server = BatchServer(model, batch_slots=args.slots, max_len=max_len,
-                         params=model.init(gen, device), device=device,
-                         prefill_chunk=("auto" if args.prefill_chunk is None
-                                        else args.prefill_chunk),
-                         prefill_buckets=args.prefill_buckets)
+    try:
+        server = BatchServer(
+            model, batch_slots=args.slots, max_len=max_len,
+            params=model.init(gen, device), device=device,
+            paged_kv=False if args.no_paged_kv else "auto",
+            prefill_chunk=("auto" if args.prefill_chunk is None
+                           else args.prefill_chunk),
+            prefill_buckets=args.prefill_buckets)
+    except ValueError as e:
+        ap.error(str(e))
 
     rng = np.random.RandomState(args.seed)
     shared = rng.randint(1, cfg.vocab - 1,
@@ -159,10 +169,11 @@ def main(argv=None):
     print(f"[serve] {len(responses)}/{args.requests} completed in {dt:.1f}s "
           f"on {device}; stats={server.stats}")
     nic = server.nic_report()["total"]
+    kv = server.kv_stats()
     print(f"[serve] SimCXL NIC projection: PCIe {nic['pcie_us']:.1f}us vs "
           f"CXL {nic['cxl_us']:.1f}us ({nic['speedup_x']}x); "
-          f"kv: {server.kv_stats()['kv_tier']} tier, "
-          f"{server.kv_stats()['blocks_allocated']} blocks")
+          f"kv: {'paged' if kv['paged_kv'] else 'dense'} cache, "
+          f"{kv['kv_tier']} tier, {kv['blocks_allocated']} blocks")
 
     undrained = args.requests - len(responses)
     if undrained or server.stats["failed"]:

@@ -220,6 +220,59 @@ def attn_apply(p, x, cfg):
     return proj, (k, v)
 
 
+def gqa_attention(q, k, v, *, q_pos, k_pos, k_valid=None,
+                  causal: bool = True):
+    """Plain GQA attention over a dense KV cache (JAX's ``gqa_attention``,
+    jnp there and plain PyTorch here, on a card too).
+
+    q: (B, S, H, hd); k, v: (B, T, K, hd) with H % K == 0; q_pos (B, S)
+    and k_pos (B, T) absolute positions; k_valid: optional (B, T) bool of
+    written cache slots.  Scores in f32, masked to -1e30, softmax in f32;
+    the weights are rounded to v.dtype before P.V, as JAX does.  Returns
+    (B, S, H, hd) in v.dtype.
+    """
+    B, S, H, hd = q.shape
+    T, K = k.shape[1], k.shape[2]
+    qg = q.reshape(B, S, K, H // K, hd)
+    scores = torch.einsum("bskgd,btkd->bkgst", qg.float(), k.float()) \
+        * float(1.0 / np.sqrt(hd))
+    mask = torch.ones((B, S, T), dtype=torch.bool, device=q.device)
+    if causal:
+        mask &= k_pos[:, None, :] <= q_pos[:, :, None]
+    if k_valid is not None:
+        mask &= k_valid[:, None, :]
+    scores = scores.masked_fill(~mask[:, None, None], -1e30)
+    w = torch.softmax(scores, dim=-1)
+    out = torch.einsum("bkgst,btkd->bskgd", w.to(v.dtype), v)
+    return out.reshape(B, S, H, hd)
+
+
+def dense_decode_attn_apply(p, x, cfg, ck, cv, cur):
+    """Single-token decode attention against one layer's dense cache,
+    which it writes first (JAX's ``_decode_attn``: ``compute_kv``, the
+    write at ``cur``, then ``attn_apply(kv=(ck, cv), k_pos, k_valid)``).
+
+    x: (B, 1, D) normed; ck/cv: (B, T, K, hd), updated IN PLACE at
+    position ``cur`` (0-d int32 tensor, clamped to T - 1 as
+    ``dynamic_update_slice`` clamps) with the new k/v cast to the cache
+    dtype; every slot attends to positions <= cur.  Returns attn_out
+    (B, 1, D).
+    """
+    B = x.shape[0]
+    T = ck.shape[1]
+    H, hd = cfg.n_heads, cfg.head_dim
+    qpos = cur.long().view(1, 1).expand(B, 1)
+    q = _project_q(p, x, cfg, qpos)
+    knew, vnew = compute_kv(p, x, cfg, positions=qpos)
+    idx = cur.long().clamp(max=T - 1).view(1)
+    ck.index_copy_(1, idx, knew.to(ck.dtype))
+    cv.index_copy_(1, idx, vnew.to(cv.dtype))
+    k_pos = torch.arange(T, device=x.device).expand(B, T)
+    out = gqa_attention(q, ck, cv, q_pos=qpos, k_pos=k_pos,
+                        k_valid=k_pos <= cur.long())
+    return out.reshape(B, 1, H * hd) @ p["wo"]
+
+
 def paged_attn_apply(p, x, cfg, k_pages, v_pages, block_tables, seq_lens):
     """Single-token decode attention against a block-table-indexed KV pool.
 

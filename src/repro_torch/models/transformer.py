@@ -1,42 +1,71 @@
-"""Decoder-only LM on the paged KV plane (PyTorch counterpart of
-``repro/models/transformer.py``, dense and moe families): the
-exact-length prompt forward of one-shot prefill (``lm_prefill``) and its
-page write, chunked prefill, and paged decode.
+"""Decoder-only LM (PyTorch counterpart of ``repro/models/transformer.py``):
+the dense and moe families on the paged KV plane (the exact-length prompt
+forward of one-shot prefill, ``lm_prefill``, and its page write, chunked
+prefill, paged decode), and the zamba2-style hybrid family on the
+dense-cache plane (``lm_init_cache``, ``lm_prefill`` with ``max_len``,
+``lm_decode_step``).
 
-The stacked ``(L, ...)`` block params keep JAX's leaf names and layouts;
+The stacked ``(L, ...)`` block params keep JAX's leaf names and layouts
+(hybrid: ``mamba_groups`` stacked ``(n_groups, every, ...)``,
+``mamba_tail`` ``(tail, ...)``, one ``shared`` attention block);
 ``lax.scan`` over them becomes a Python loop over layers.  The arena is
 ``{"kp", "vp"}`` of shape ``(L, P, bt, K, hd)`` with the trash page at
-``P - 1``.  The step functions update it IN PLACE (``index_put_``): what
-JAX gets from ``donate_argnums`` on the arena, the port does directly, so
-the arena never copies; they also return it, for symmetry with JAX.
+``P - 1``.  The step functions update the arena, or the dense cache, IN
+PLACE (``index_put_`` / ``index_copy_``): what JAX gets from
+``donate_argnums``, the port does directly, so neither ever copies; they
+also return it, for symmetry with JAX.
 """
 from __future__ import annotations
 
-from typing import Any, Dict
+from typing import Any, Dict, Tuple
 
 import torch
 import torch.nn.functional as F
 
 from repro_torch.models import moe as moe_mod
+from repro_torch.models import ssm as ssm_mod
 from repro_torch.models.layers import (
-    ParamDef, attn_apply, attn_schema, mlp_apply, mlp_schema,
-    paged_attn_apply, paged_prefill_attn_apply, rmsnorm, stack_schema,
+    ParamDef, attn_apply, attn_schema, dense_decode_attn_apply, mlp_apply,
+    mlp_schema, paged_attn_apply, paged_prefill_attn_apply, rmsnorm,
+    stack_schema,
 )
 
 _PAGED_FAMILIES = ("dense", "moe")
+_DENSE_PLANE_FAMILIES = ("hybrid",)
 _LATER = {"vlm": "VLM on the paged plane",
-          "hybrid": "the dense-cache plane and non-paged families",
-          "ssm": "the dense-cache plane and non-paged families",
-          "audio": "the dense-cache plane and non-paged families"}
+          "ssm": "xLSTM with continuous admission (non-paged families)",
+          "audio": "whisper (encoder-decoder, non-paged families)"}
 
 
-def require_paged_family(cfg):
-    """The port serves the dense and moe families on the paged plane."""
-    if cfg.family not in _PAGED_FAMILIES:
+def require_ported_family(cfg):
+    """The port serves the dense and moe families on the paged plane and
+    the hybrid family on the dense-cache plane."""
+    if cfg.family not in _PAGED_FAMILIES + _DENSE_PLANE_FAMILIES:
         later = _LATER.get(cfg.family, "a later slice")
         raise NotImplementedError(
             f"family {cfg.family!r} is not ported yet; it comes with the "
             f"slice for {later}")
+
+
+def require_paged_family(cfg):
+    """Guard of the paged-plane entry points: dense and moe."""
+    require_ported_family(cfg)
+    if cfg.family not in _PAGED_FAMILIES:
+        raise ValueError(f"family {cfg.family!r} has no paged KV path (its "
+                         f"cache is not a uniform KV stack): it serves on "
+                         f"the dense-cache plane, as in JAX")
+
+
+def require_dense_plane_family(cfg):
+    """Guard of the dense-cache entry points: the hybrid family.  The
+    dense and moe families' dense plane (bucketed prefill, the SWA ring)
+    is a later slice."""
+    require_ported_family(cfg)
+    if cfg.family not in _DENSE_PLANE_FAMILIES:
+        raise NotImplementedError(
+            f"the dense (slots, max_len) KV cache of family "
+            f"{cfg.family!r} is not ported yet: it comes with the port's "
+            f"slice for the dense-cache plane of the dense family")
 
 
 # --------------------------------------------------------------------------
@@ -54,8 +83,21 @@ def _block_schema(cfg) -> Dict[str, Any]:
     return s
 
 
+def hybrid_layout(cfg) -> Tuple[int, int, int]:
+    """(n_groups, group_size, tail) for zamba2-style hybrids."""
+    every = cfg.hybrid_attn_every
+    n_groups = cfg.n_layers // every
+    tail = cfg.n_layers - n_groups * every
+    return n_groups, every, tail
+
+
+def _mamba_block_schema(cfg) -> Dict[str, Any]:
+    return {"norm": ParamDef((cfg.d_model,), "zeros"),
+            **ssm_mod.mamba_schema(cfg)}
+
+
 def lm_schema(cfg) -> Dict[str, Any]:
-    require_paged_family(cfg)
+    require_ported_family(cfg)
     V, D = cfg.padded_vocab, cfg.d_model
     s: Dict[str, Any] = {
         "emb": ParamDef((V, D), scale=0.02),
@@ -63,7 +105,16 @@ def lm_schema(cfg) -> Dict[str, Any]:
     }
     if not cfg.tie_embeddings:
         s["head"] = ParamDef((D, V))
-    s["blocks"] = stack_schema(_block_schema(cfg), cfg.n_layers)
+    if cfg.family == "hybrid":
+        ng, every, tail = hybrid_layout(cfg)
+        mb = _mamba_block_schema(cfg)
+        if ng > 0:
+            s["mamba_groups"] = stack_schema(stack_schema(mb, every), ng)
+        if tail:
+            s["mamba_tail"] = stack_schema(mb, tail)
+        s["shared"] = _block_schema(cfg)
+    else:
+        s["blocks"] = stack_schema(_block_schema(cfg), cfg.n_layers)
     return s
 
 
@@ -129,35 +180,102 @@ def _paged_swa_later():
         "(the other paged engine planes)")
 
 
-def lm_prefill(params, cfg, tokens):
-    """Forward over whole prompts at their exact length (JAX's
-    ``lm_prefill`` with ``max_len=None``).
+def _attn_block(bp, x, cfg):
+    """Pre-norm causal self-attention of the whole prompt, with residual;
+    returns (x, (k, v))."""
+    h = rmsnorm(x, bp["ln1"], cfg.norm_eps)
+    attn_out, kv = attn_apply(bp["attn"], h, cfg)
+    return x + attn_out, kv
 
-    tokens: (B, S) int32, all rows of one length.  Each layer runs causal
-    self-attention over the prompt (``layers.attn_apply``: the
-    ``flash_attention`` kernel on a card), then the FFN; the final norm
-    runs over the whole sequence, as JAX's ``lm_hidden`` does.  Returns
-    (logits (B, V) at position S - 1, cache {"k", "v": (L, B, S, K, hd) in
-    the compute dtype, "cur": S as a 0-d int32}).  Under capacity routing
-    the MoE layers dispatch the whole (B, S) group at once, as in JAX.
+
+def _mamba_layer(mp, x, cfg):
+    """Pre-norm Mamba2 layer over the prompt, with residual; returns
+    (x, decode state)."""
+    y, st = ssm_mod.mamba_apply(mp, rmsnorm(x, mp["norm"], cfg.norm_eps),
+                                cfg, return_state=True)
+    return x + y, st
+
+
+def _hybrid_forward(params, cfg, x):
+    """zamba2 groups of [shared attention block + ``every`` Mamba2 layers],
+    then the tail layers.  Returns (x, group k/v lists, per-layer states
+    in layer order)."""
+    ng, every, tail = hybrid_layout(cfg)
+    shared = params["shared"]
+    ks, vs, states = [], [], []
+    for g in range(ng):
+        x, (k, v) = _attn_block(shared, x, cfg)
+        x = _ffn_block(shared, x, cfg)
+        ks.append(k)
+        vs.append(v)
+        gp = layer_params(params["mamba_groups"], g)
+        for j in range(every):
+            x, st = _mamba_layer(layer_params(gp, j), x, cfg)
+            states.append(st)
+    for j in range(tail):
+        x, st = _mamba_layer(layer_params(params["mamba_tail"], j), x, cfg)
+        states.append(st)
+    return x, ks, vs, states
+
+
+def _pack_kv(kv, B, T, cfg, like):
+    """Stacked (n, B, S, K, hd) rows sliced or zero-padded to T positions
+    (a prompt longer than T keeps its last T); no groups -> an empty
+    (0, B, T, K, hd) bf16 stack, as in JAX."""
+    if not kv:
+        return torch.zeros((0, B, T, cfg.n_kv_heads, cfg.head_dim),
+                           dtype=torch.bfloat16, device=like.device)
+    k = torch.stack(kv)
+    S = k.shape[2]
+    if S > T:
+        return k[:, :, S - T:]
+    return F.pad(k, (0, 0, 0, 0, 0, T - S))
+
+
+def lm_prefill(params, cfg, tokens, max_len=None):
+    """Forward over whole prompts at their exact length, returning
+    (logits (B, V) at position S - 1, cache).
+
+    tokens: (B, S) int32, all rows of one length.  Attention runs causal
+    over the prompt (``layers.attn_apply``: the ``flash_attention`` kernel
+    on a card), each Mamba2 layer its chunked scan (``ssm.mamba_apply``:
+    the ``ssd_scan`` kernel on a card); the final norm runs over the whole
+    sequence, as JAX's ``lm_hidden`` does.
+
+    Dense and moe (paged plane, ``max_len=None`` only): cache {"k", "v":
+    (L, B, S, K, hd) in the compute dtype, "cur": S as a 0-d int32}.
+    Under capacity routing the MoE layers dispatch the whole (B, S) group
+    at once, as in JAX.  Hybrid (dense-cache plane): {"k", "v": (n_groups,
+    B, T, K, hd) with T = max_len or S, "ssm": (n_layers, B, h, hd, S) f32,
+    "conv": (n_layers, B, w - 1, di) bf16, "cur": S}.
     """
-    require_paged_family(cfg)
+    require_ported_family(cfg)
+    if max_len is not None:
+        require_dense_plane_family(cfg)
+    B, S = tokens.shape
+    x = _embed(params, tokens)
+    cur = torch.full((), S, dtype=torch.int32, device=tokens.device)
+    if cfg.family == "hybrid":
+        x, ks, vs, states = _hybrid_forward(params, cfg, x)
+        x = rmsnorm(x, params["final_norm"], cfg.norm_eps)
+        logits = _logits(params, cfg, x[:, -1:])[:, 0]
+        T = max_len or S
+        return logits, {"k": _pack_kv(ks, B, T, cfg, x),
+                        "v": _pack_kv(vs, B, T, cfg, x),
+                        "ssm": torch.stack([st["ssm"] for st in states]),
+                        "conv": torch.stack([st["conv"] for st in states]),
+                        "cur": cur}
     if cfg.sliding_window:
         raise _paged_swa_later()
-    S = tokens.shape[1]
-    x = _embed(params, tokens)
     ks, vs = [], []
     for i in range(cfg.n_layers):
         bp = layer_params(params["blocks"], i)
-        h = rmsnorm(x, bp["ln1"], cfg.norm_eps)
-        attn_out, (k, v) = attn_apply(bp["attn"], h, cfg)
-        x = x + attn_out
+        x, (k, v) = _attn_block(bp, x, cfg)
         x = _ffn_block(bp, x, cfg)
         ks.append(k)
         vs.append(v)
     x = rmsnorm(x, params["final_norm"], cfg.norm_eps)
     logits = _logits(params, cfg, x[:, -1:])[:, 0]
-    cur = torch.full((), S, dtype=torch.int32, device=tokens.device)
     return logits, {"k": torch.stack(ks), "v": torch.stack(vs), "cur": cur}
 
 
@@ -292,3 +410,70 @@ def lm_paged_decode_step(params, cfg, pages, tokens, block_tables, seq_lens):
 
     x = rmsnorm(x, params["final_norm"], cfg.norm_eps)
     return _logits(params, cfg, x)[:, 0], pages
+
+
+# --------------------------------------------------------------------------
+# Dense-cache plane (hybrid family)
+# --------------------------------------------------------------------------
+def lm_init_cache(cfg, batch: int, max_len: int, dtype=None, device=None):
+    """Zero-initialised dense decode cache: {"k", "v": (n_groups, batch, T,
+    K, hd) and "conv": (n_layers, batch, w - 1, di) in ``cfg.cache_dtype``,
+    "ssm": (n_layers, batch, h, hd, S) f32, "cur": 0 as a 0-d int32}."""
+    require_dense_plane_family(cfg)
+    if dtype is None:
+        dtype = getattr(torch, cfg.cache_dtype)
+    ng, _, _ = hybrid_layout(cfg)
+    K, hd = cfg.n_kv_heads, cfg.head_dim
+    h, hs, S = cfg.n_ssm_heads, cfg.ssm_head_dim, cfg.ssm_state
+    L = cfg.n_layers
+    kv = (ng, batch, max_len, K, hd)
+    return {"k": torch.zeros(kv, dtype=dtype, device=device),
+            "v": torch.zeros(kv, dtype=dtype, device=device),
+            "ssm": torch.zeros((L, batch, h, hs, S), dtype=torch.float32,
+                               device=device),
+            "conv": torch.zeros((L, batch, cfg.conv_width - 1, cfg.d_inner),
+                                dtype=dtype, device=device),
+            "cur": torch.zeros((), dtype=torch.int32, device=device)}
+
+
+def lm_decode_step(params, cfg, cache, tokens):
+    """tokens: (B, 1) int32 -> (logits (B, V), cache).  Every slot decodes
+    at the shared write index ``cur``.
+
+    The cache is updated IN PLACE (each group's k/v at ``cur``, each
+    layer's ssm state) and returned with ``cur + 1``.  The conv leaf comes
+    back bf16, as JAX's does: a bf16 leaf is written in place, a leaf of
+    another dtype (an f32 cache before its first step) is replaced by a
+    bf16 one.
+    """
+    require_dense_plane_family(cfg)
+    ng, every, tail = hybrid_layout(cfg)
+    cur = cache["cur"]
+    x = _embed(params, tokens)
+    shared = params["shared"]
+    ssm, conv = cache["ssm"], cache["conv"]
+    new_conv = conv if conv.dtype == torch.bfloat16 \
+        else torch.empty(conv.shape, dtype=torch.bfloat16, device=conv.device)
+
+    def mamba(mp, x, i):
+        h = rmsnorm(x, mp["norm"], cfg.norm_eps)
+        y, st = ssm_mod.mamba_decode_step(
+            mp, h, {"ssm": ssm[i], "conv": conv[i]}, cfg)
+        ssm[i].copy_(st["ssm"])
+        new_conv[i].copy_(st["conv"])
+        return x + y
+
+    for g in range(ng):
+        h = rmsnorm(x, shared["ln1"], cfg.norm_eps)
+        x = x + dense_decode_attn_apply(shared["attn"], h, cfg,
+                                        cache["k"][g], cache["v"][g], cur)
+        x = _ffn_block(shared, x, cfg)
+        gp = layer_params(params["mamba_groups"], g)
+        for j in range(every):
+            x = mamba(layer_params(gp, j), x, g * every + j)
+    for j in range(tail):
+        x = mamba(layer_params(params["mamba_tail"], j), x, ng * every + j)
+    x = rmsnorm(x, params["final_norm"], cfg.norm_eps)
+    return _logits(params, cfg, x)[:, 0], {
+        "k": cache["k"], "v": cache["v"], "ssm": ssm, "conv": new_conv,
+        "cur": cur + 1}

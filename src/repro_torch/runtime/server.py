@@ -1,8 +1,8 @@
-"""Serving runtime on the paged KV plane (PyTorch counterpart of
-``repro/runtime/server.py``).
+"""Serving runtime (PyTorch counterpart of ``repro/runtime/server.py``).
 
-``BatchServer`` is the synchronous tick loop of the JAX engine, restricted
-to the paged plane with chunked or one-shot prefill:
+``BatchServer`` is the synchronous tick loop of the JAX engine, on the
+paged plane (dense and moe families) with chunked or one-shot prefill,
+and on the dense-cache plane (the hybrid family, which has no paged path):
 
   * requests arrive as wire messages (``core.rpc``) and are billed by the
     SimCXL NIC cost model (``runtime.niccost``);
@@ -17,15 +17,20 @@ to the paged plane with chunked or one-shot prefill:
     (``model.prefill``) and installed by one page write
     (``model.paged_prefill_write``, ``_admit_group``);
   * DECODE slots advance one token per tick in one batched
-    ``model.paged_decode_step`` (``_decode_tick``).
-On a CUDA device the steps run their attention, norms (and, for the moe
-family, the expert GEMMs and the gated combine) in the hand-written
-kernels of ``kernels.ops``; on the CPU in the plain versions.
+    ``model.paged_decode_step`` (``_decode_tick``);
+  * dense-cache plane: requests are admitted in equal-prompt-length waves
+    (the shared write index ``cur``), each group of up to
+    ``prefill_batch`` prefilled in one ``model.prefill`` to ``max_len``
+    and spliced into the (slots, max_len) cache; every tick decodes all
+    slots in one ``model.decode_step``, and the pager only accounts.
+On a CUDA device the steps run their attention, norms, SSD scans (and,
+for the moe family, the expert GEMMs and the gated combine) in the
+hand-written kernels of ``kernels.ops``; on the CPU in the plain versions.
 
-Every option outside this plane raises, naming the later slice of the port
-that brings it: the dense cache (``paged_kv=False``), the prefix cache, KV
-tiering, paged sliding-window attention, disaggregated and asyncio
-engines.
+Every option outside these planes raises, naming the later slice of the
+port that brings it: the dense cache of the dense and moe families
+(``paged_kv=False``), the prefix cache, KV tiering, paged sliding-window
+attention, disaggregated and asyncio engines.
 """
 from __future__ import annotations
 
@@ -93,6 +98,23 @@ def _tree_nbytes(tree) -> int:
     return tree.numel() * tree.element_size()
 
 
+def _splice_rows_tree(cache, cache1, slots: torch.Tensor, n_slots: int):
+    """Write a B=k prefill cache into batch rows ``slots`` of the shared
+    cache, in place (``index_copy_``): stacked (L, B, ...) leaves on axis
+    1, per-batch (B, ...) leaves on axis 0, cast to the shared leaf's
+    dtype; scalars pass through (the caller owns the write index)."""
+    k = slots.shape[0]
+    for name, full in cache.items():
+        one = cache1[name]
+        if one.dim() == 0:
+            continue
+        if one.dim() >= 2 and one.shape[1] == k and full.shape[1] == n_slots:
+            full.index_copy_(1, slots, one.to(full.dtype))
+        elif one.shape[0] == k and full.shape[0] == n_slots:
+            full.index_copy_(0, slots, one.to(full.dtype))
+    return cache
+
+
 def _tree_device(tree) -> Optional[torch.device]:
     if isinstance(tree, dict):
         for v in tree.values():
@@ -104,12 +126,16 @@ def _tree_device(tree) -> Optional[torch.device]:
 
 
 class BatchServer:
-    """Slot-based continuous batching on the paged KV plane: chunked
-    bucketed or one-shot grouped prefill, plus batched paged decode.
+    """Slot-based batching: on the paged KV plane chunked bucketed or
+    one-shot grouped prefill plus batched paged decode; on the dense-cache
+    plane (``paged_kv`` resolves there for a model without a paged path)
+    equal-length admission waves, grouped prefill spliced into the dense
+    cache, and batched decode of every slot.
 
     Per-request lifecycle is the scheduler state machine; slot claims go
     through the RAO ticket sequencer; the pager owns the block table of
-    the pooled arena.  ``nic_cost=None`` disables the SimCXL NIC
+    the pooled arena (paged) or accounts the dense cache's blocks in the
+    coherent pool (dense).  ``nic_cost=None`` disables the SimCXL NIC
     projection.  ``device`` defaults to the CUDA card; ``params`` must
     live on it (``model.init`` draws them there when omitted).
     """
@@ -127,9 +153,17 @@ class BatchServer:
                  kv_near_blocks: Optional[int] = None,
                  kv_demote_after: Optional[int] = None):
         cfg = model.cfg
-        if paged_kv not in ("auto", None, True):
+        has_paged = model.paged_decode_step is not None
+        if paged_kv in ("auto", None):
+            paged_kv = has_paged
+        if paged_kv and not has_paged:
+            raise ValueError(f"paged_kv requested but model {cfg.family!r} "
+                             f"has no paged decode path")
+        if not paged_kv and has_paged:
             raise _later("the dense (slots, max_len) KV cache plane "
-                         "(paged_kv=False)", "the dense-cache plane")
+                         "(paged_kv=False) of the dense and moe families",
+                         "the dense-cache plane of the dense family")
+        self.paged = bool(paged_kv)
         # prefill is chunk/pad-invariant iff routing decisions are a pure
         # per-token function: every family except capacity-factor MoE,
         # whose expert drops depend on the token population of each
@@ -137,7 +171,12 @@ class BatchServer:
         # launch.serve) runs the chunked bucketed pipeline like the rest.
         chunk_invariant = cfg.family != "moe" or \
             cfg.moe_routing == "dropless"
-        if prefill_chunk in ("auto", None):
+        if not self.paged:
+            if prefill_chunk not in ("auto", None, 0):
+                raise ValueError("prefill_chunk requires the paged KV plane "
+                                 "(paged_kv)")
+            prefill_chunk = 0
+        elif prefill_chunk in ("auto", None):
             prefill_chunk = min(64, max_len) if chunk_invariant else 0
         prefill_chunk = int(prefill_chunk)
         if prefill_chunk < 0:
@@ -174,17 +213,26 @@ class BatchServer:
                              f"{self.device}")
         self.params = params
         self.family = cfg.family
-        self.paged = True
         self.prefill_chunk = prefill_chunk
         self.chunk_buckets = _prefill_buckets(prefill_chunk, prefill_buckets) \
             if prefill_chunk else ()
         self.prefill_batch = max(1, prefill_batch)
-        self.pages = model.init_paged_cache(batch_slots, max_len,
-                                            block_tokens, device=self.device)
-        kp = self.pages["kp"]
-        # k+v bytes per token, derived from the arena itself
-        footprint = (2 * kp.numel() * kp.element_size()
-                     // (kp.shape[1] * block_tokens), 0)
+        if self.paged:
+            self.pages = model.init_paged_cache(batch_slots, max_len,
+                                                block_tokens,
+                                                device=self.device)
+            self.cache = None
+            kp = self.pages["kp"]
+            # k+v bytes per token, derived from the arena itself
+            footprint = (2 * kp.numel() * kp.element_size()
+                         // (kp.shape[1] * block_tokens), 0)
+        else:
+            self.pages = None
+            self.cache = model.init_cache(batch_slots, max_len,
+                                          device=self.device)
+            # the reference's accounting walks the cache tree: the ssm and
+            # conv leaves count as per-token bytes, as in JAX
+            footprint = None
         # the card's own HBM capacity and stream rate (the pool's defaults
         # are the reference package's and stay for the CPU only)
         hbm = device_hbm_bytes(self.device)
@@ -192,17 +240,20 @@ class BatchServer:
             pool = CoherentMemoryPool(hbm_bytes=hbm)
             pool.tiers["hbm"].stream_bw_GBs = H100_HBM_STREAM_GBs
         self.table = SlotTable(batch_slots)
-        self.queue = AdmissionQueue(continuous=True)
-        self.pager = KVBlockPager(None, n_slots=batch_slots,
+        # shared-write-index caches admit in equal-prompt-length waves;
+        # the paged plane (per-slot lengths) admits continuously
+        self.queue = AdmissionQueue(continuous=self.paged)
+        self.pager = KVBlockPager(self.cache, n_slots=batch_slots,
                                   max_len=max_len, block_tokens=block_tokens,
                                   paged=True, pool=pool,
                                   params_bytes=_tree_nbytes(self.params),
-                                  hbm_budget=hbm, track_table=True,
+                                  hbm_budget=hbm, track_table=self.paged,
                                   footprint=footprint)
         # the model sized the arena, the pager sized the page table: every
         # page id must address a real (non-trash) arena page
-        assert kp.shape[1] == self.pager.near_frames + 1, \
-            (tuple(kp.shape), self.pager.near_frames)
+        if self.paged:
+            assert self.pages["kp"].shape[1] == self.pager.near_frames + 1, \
+                (tuple(self.pages["kp"].shape), self.pager.near_frames)
         if nic_cost is True:
             self.niccost = NicCostModel()
         elif nic_cost in (None, False):
@@ -212,6 +263,8 @@ class BatchServer:
         # PyTorch runs eagerly: the engine's step functions are the model's
         # plain callables (jit_fns() lists them under the JAX names)
         self._prefill_exact = model.prefill
+        self._prefill = lambda p, t: model.prefill(p, t, max_len)
+        self._decode = model.decode_step
         self._page_write = model.paged_prefill_write
         self._chunk_prefill = model.paged_prefill_chunk
         self._paged_decode = model.paged_decode_step
@@ -240,6 +293,9 @@ class BatchServer:
     def jit_fns(self) -> Dict[str, Callable]:
         """Name -> engine step callable (the JAX engine's jit registry
         names; here plain eager functions)."""
+        if not self.paged:
+            return {"prefill": self._prefill, "decode": self._decode,
+                    "splice": _splice_rows_tree}
         fns = {"prefill_exact": self._prefill_exact,
                "paged_decode": self._paged_decode,
                "page_write": self._page_write}
@@ -294,15 +350,17 @@ class BatchServer:
 
     def _admit_group(self, reqs: List[Request], now: float):
         """Prefill a group of equal-prompt-length requests in one
-        exact-length call (B = len(reqs)), then install all their KV with
-        one page write that touches only the admitted slots' pages."""
+        exact-length call (B = len(reqs)), then install it: on the paged
+        plane one page write that touches only the admitted slots' pages,
+        on the dense plane one in-place splice of the slots' cache rows
+        and the shared write index."""
         for req in reqs:
             req.to(RequestState.PREFILL, now)
         slot_arr = [self.table.bind(req) for req in reqs]
         toks = np.asarray([r.prompt for r in reqs], np.int32)
         S = int(toks.shape[1])
-        logits, cache1 = self._prefill_exact(self.params,
-                                             self._to_device(toks))
+        prefill = self._prefill_exact if self.paged else self._prefill
+        logits, cache1 = prefill(self.params, self._to_device(toks))
         # only the (G,) greedy ids leave the device
         nxt = torch.argmax(logits, dim=-1).cpu().numpy()
         t1 = time.perf_counter()
@@ -311,10 +369,21 @@ class BatchServer:
             req.to(RequestState.DECODE, t1)
 
         tw = time.perf_counter()
-        ids = [p for slot in slot_arr for p in self.pager.admit(slot, S)]
-        self.pages = self._page_write(
-            self.pages, cache1["k"], cache1["v"],
-            self._to_device(np.asarray(ids, np.int32)), S)
+        if self.paged:
+            ids = [p for slot in slot_arr for p in self.pager.admit(slot, S)]
+            self.pages = self._page_write(
+                self.pages, cache1["k"], cache1["v"],
+                self._to_device(np.asarray(ids, np.int32)), S)
+        else:
+            self.cache = _splice_rows_tree(
+                self.cache, cache1, self._to_device(
+                    np.asarray(slot_arr, np.int64)), self.slots)
+            # shared write index: admission waves have equal prompt
+            # lengths, so overwriting it never moves it under an in-flight
+            # request
+            self.cache["cur"] = cache1["cur"]
+            for slot in slot_arr:
+                self.pager.admit(slot, self.table.active[slot].pos)
         if self.sync_timers:
             self._sync()
         self.stats["splice_wall_s"] += time.perf_counter() - tw
@@ -335,12 +404,20 @@ class BatchServer:
                 group.clear()
 
         while self.table.free > len(group):
-            req = self.queue.pop_admissible(
-                engine_empty=not self.active and not group, write_index=0)
+            empty = not self.active and not group
+            if self.paged or empty:
+                wi = 0                            # unused by the policy
+            elif group:
+                # mid-wave: the group fixes the admissible prompt length
+                wi = len(group[0].prompt)
+            else:
+                wi = int(self.cache["cur"])       # device sync only if needed
+            req = self.queue.pop_admissible(engine_empty=empty,
+                                            write_index=wi)
             if req is None:
                 break
             if not req.prompt or req.max_new < 1 or \
-                    len(req.prompt) > self.max_len:
+                    (self.paged and len(req.prompt) > self.max_len):
                 failures.append(self._fail(req, now))
                 continue
             if self.prefill_chunk:
@@ -378,6 +455,8 @@ class BatchServer:
         return buf
 
     def _exhausted(self, req: Request) -> bool:
+        # JAX skips the max_len cap only for continuously admitted
+        # (recurrent-state, xLSTM) families, which the port does not serve
         return len(req.generated) >= req.max_new or req.pos >= self.max_len
 
     def _harvest(self, now: float) -> List[bytes]:
@@ -485,19 +564,25 @@ class BatchServer:
             last[slot, 0] = req.generated[-1] if req.generated else 0
         # the window starts before the pager's host work, as JAX's does
         t0 = time.perf_counter()
-        lens = np.zeros((self.slots,), np.int32)
-        for slot, req in decoding.items():
-            lens[slot] = req.pos - 1              # tokens resident in pages
-            # grow the block list so the incoming token's page exists
-            # before the kernel computes its write location
-            self.pager.advance(slot, req.pos)
-        nb = self._decode_bucket(int(lens.max()) + 1)
-        # PREFILLING slots hold live table rows but must be neither
-        # attended nor written by the decode step
-        btab = self._masked_block_table(decoding, nb)
-        logits, self.pages = self._paged_decode(
-            self.params, self.pages, self._to_device(last),
-            self._to_device(btab), self._to_device(lens))
+        if self.paged:
+            lens = np.zeros((self.slots,), np.int32)
+            for slot, req in decoding.items():
+                lens[slot] = req.pos - 1          # tokens resident in pages
+                # grow the block list so the incoming token's page exists
+                # before the kernel computes its write location
+                self.pager.advance(slot, req.pos)
+            nb = self._decode_bucket(int(lens.max()) + 1)
+            # PREFILLING slots hold live table rows but must be neither
+            # attended nor written by the decode step
+            btab = self._masked_block_table(decoding, nb)
+            logits, self.pages = self._paged_decode(
+                self.params, self.pages, self._to_device(last),
+                self._to_device(btab), self._to_device(lens))
+        else:
+            # every slot decodes at the shared write index, free ones too
+            # (their rows are overwritten wholesale on admission)
+            logits, self.cache = self._decode(self.params, self.cache,
+                                              self._to_device(last))
         nxt = torch.argmax(logits, dim=-1).cpu().numpy()
         self.stats["decode_wall_s"] += time.perf_counter() - t0
         self.stats["decode_steps"] += 1
@@ -505,6 +590,8 @@ class BatchServer:
         now = time.perf_counter()
         for slot, req in decoding.items():
             req.generated.append(int(nxt[slot]))
+            if not self.paged:
+                self.pager.advance(slot, req.pos)
         return self._harvest(now)
 
     def run_until_drained(self,
@@ -522,7 +609,7 @@ class BatchServer:
     # --------------------------------------------------------- reporting
     def kv_stats(self) -> dict:
         out = self.pager.stats()
-        out["paged_kv"] = True
+        out["paged_kv"] = self.paged
         out["tiered"] = False
         return out
 
