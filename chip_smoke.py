@@ -10,8 +10,9 @@ prefill, and the dense-cache plane for the hybrid family (zamba2-7b).
 
 Phases (each prints its own lines and wall time; any failure raises):
   1. device   — card name, and name + power limit from nvidia-smi;
-  2. build    — all seven kernels, one nvcc process per source
-                (kernels/build.py);
+  2. build    — all seven kernels (flash_attention as two sources: the
+                bf16 tensor-core kernel and the f32 CUDA-core one), one
+                nvcc process per source (kernels/build.py);
   3. kernels  — each kernel against its plain PyTorch version: the
                 attention kernels at mistral-nemo-12b's shapes (H=32, K=8,
                 hd=128, bt=16, B=8, ctx up to 512, C in {8, 64}) with
@@ -23,8 +24,12 @@ Phases (each prints its own lines and wall time; any failure raises):
                 shapes (D=1536, M in {320, 20480} random duplicates, and
                 CENTRAL: every update on one row); flash_attention at the
                 three models' head shapes (32/8 x 128, 24/8 x 64, 32/32 x
-                112), S in {17, 64, 300}, B in {1, 4}, plus a windowed
-                case; rmsnorm at D in {64, 1536, 3584, 5120, 7168}, N in
+                112), S in {17, 64, 189, 209, 300} (the main path's 189
+                and 209; 17 and 300 no multiple of 16 or 64), B in {1, 4},
+                windowed cases, S != T causal and not, and odd head dims
+                (8, 40, 200: zero-padded to 16 in the bf16 kernel), each
+                in bf16 (tensor-core kernel) and f32 (CUDA-core kernel);
+                rmsnorm at D in {64, 1536, 3584, 5120, 7168}, N in
                 {1, 8, 1200}; ssd_scan (y and final state) at zamba2's
                 heads (h 112, hd 64, S 64) with L a multiple of 128, L
                 ragged, one chunk and several, plus odd small shapes.
@@ -59,7 +64,10 @@ Phases (each prints its own lines and wall time; any failure raises):
                 flash_attention L per group call, rmsnorm 2L + 1 per model
                 call, moe_gmm 3L and rao_scatter_add L per model call;
                 zamba2: ssd_scan 81 and flash_attention 13 per group call,
-                rmsnorm 189 per model call, no paged kernel;
+                rmsnorm 189 per model call, no paged kernel; every bf16
+                flash_attention launch on the tensor-core kernel
+                (LAUNCHES["flash_attention_mma"] equal to
+                LAUNCHES["flash_attention"]);
   6. measure  — on inputs each main path itself produced, each kernel's
                 time beside its plain version's, one PyTorch library call
                 that computes the same function (never called by the port:
@@ -116,7 +124,8 @@ KERNELS = {
         source="src/repro_torch/kernels/csrc/rao_scatter.cu",
         replaces="src/repro/kernels/rao_scatter.py:53"),
     "flash_attention": dict(
-        source="src/repro_torch/kernels/csrc/flash_attention.cu",
+        source="src/repro_torch/kernels/csrc/flash_attention_mma.cu",
+        f32_source="src/repro_torch/kernels/csrc/flash_attention.cu",
         replaces="src/repro/kernels/flash_attention.py:99"),
     "rmsnorm": dict(
         source="src/repro_torch/kernels/csrc/rmsnorm.cu",
@@ -231,8 +240,11 @@ def phase_build():
     kernel = "?"
     for line in (build.build_log or "").splitlines():
         m = re.search(r"Compiling entry function '_ZN(\w+)'", line)
-        if m:   # the kernel's name and, for templates, the bf16 mark
-            kernel = _last_name(m.group(1)) + \
+        if m:   # the kernel's name, its int template argument (the bf16
+            # flash kernel's padded head dim) and the bf16 mark
+            kernel, rest = _last_name(m.group(1))
+            arg = re.match(r"ILi(\d+)E", rest)
+            kernel += (f"<{arg.group(1)}>" if arg else "") + \
                 (" bf16" if "bfloat16" in line else "")
         if "registers" in line or "spill" in line or "error" in line:
             print(f"[build] {kernel}: {line.strip()}")
@@ -240,7 +252,8 @@ def phase_build():
 
 def _last_name(nested):
     """The last <length><name> component of an Itanium-mangled nested
-    name (the function's own name)."""
+    name (the function's own name), and what follows the components (its
+    template arguments and parameters)."""
     name, i = "?", 0
     while i < len(nested) and nested[i].isdigit():
         j = i
@@ -248,7 +261,7 @@ def _last_name(nested):
             j += 1
         n = int(nested[i:j])
         name, i = nested[j:j + n], j + n
-    return name
+    return name, nested[i:]
 
 
 @phase("kernels")
@@ -368,29 +381,46 @@ def check_oneshot_kernels(rng, errs):
     def rnd(shape, dtype, scale=1.0):
         return torch.from_numpy(
             (rng.randn(*shape) * scale).astype(np.float32)).to(DEV, dtype)
-    flash_cases = [(B, S, H, K, hd, 0) for H, K, hd in ((32, 8, 128),
-                                                         (24, 8, 64),
-                                                         (32, 32, 112))
-                   for S in (17, 64, 300) for B in (1, 4)]
-    flash_cases += [(4, 300, 32, 8, 128, 100)]
+    # (B, S, T, H, K, hd, window, causal)
+    flash_cases = [(B, S, S, H, K, hd, 0, True)
+                   for H, K, hd in ((32, 8, 128), (24, 8, 64), (32, 32, 112))
+                   for S in (17, 64, 189, 209, 300) for B in (1, 4)]
+    flash_cases += [(4, 300, 300, 32, 8, 128, 100, True),
+                    (4, 209, 209, 24, 8, 64, 64, True),
+                    (1, 189, 189, 32, 32, 112, 17, True),
+                    (2, 77, 150, 32, 8, 128, 0, False),
+                    (2, 150, 77, 32, 8, 128, 0, True),
+                    (2, 20, 20, 6, 3, 8, 0, True),
+                    (1, 33, 33, 4, 2, 40, 0, True),
+                    (1, 65, 65, 8, 1, 200, 16, True)]
     for dtype, tol in ((torch.bfloat16, 2e-2), (torch.float32, 1e-4)):
-        for B, S, H, K, hd, window in flash_cases:
+        mma = int(dtype == torch.bfloat16)
+        top = 0.0   # the largest |plain output| the cases met
+        for B, S, T, H, K, hd, window, causal in flash_cases:
             q = rnd((B, S, H, hd), dtype)
-            k = rnd((B, S, K, hd), dtype)
-            v = rnd((B, S, K, hd), dtype)
-            before = ops.LAUNCHES["flash_attention"]
-            got = ops.flash_attention(q, k, v, window=window)
-            exp = ref.flash_attention(q, k, v, window=window)
+            k = rnd((B, T, K, hd), dtype)
+            v = rnd((B, T, K, hd), dtype)
+            before = dict(ops.LAUNCHES)
+            got = ops.flash_attention(q, k, v, causal=causal, window=window)
+            exp = ref.flash_attention(q, k, v, causal=causal, window=window)
             torch.cuda.synchronize()
             e = max_err(got, exp)
+            mag = float(exp.float().abs().max())
+            top = max(top, mag)
             ok = bool(torch.isfinite(got).all()) and e <= tol and \
-                ops.LAUNCHES["flash_attention"] == before + 1
-            print(f"[kernels] flash_attention {str(dtype)[6:]} B {B} S {S} "
-                  f"H {H} K {K} hd {hd} window {window}: max_abs_err "
-                  f"{e:.3g} (tol {tol})")
+                ops.LAUNCHES["flash_attention"] == \
+                before["flash_attention"] + 1 and \
+                ops.LAUNCHES["flash_attention_mma"] == \
+                before["flash_attention_mma"] + mma
+            print(f"[kernels] flash_attention{'_mma' if mma else ''} "
+                  f"{str(dtype)[6:]} B {B} S {S} T {T} H {H} K {K} hd {hd} "
+                  f"window {window} causal {causal}: max_abs_err {e:.3g} "
+                  f"(tol {tol}), max|exp| {mag:.4g}")
             if not ok:
                 raise AssertionError(f"flash_attention disagrees: {e}")
             errs["flash_attention"].append(e)
+        print(f"[kernels] flash_attention {str(dtype)[6:]}: largest |exp| "
+              f"over {len(flash_cases)} cases {top:.4g} (tol {tol})")
         for D in (64, 1536, 3584, 5120, 7168):
             for N in (1, 8, 1200):
                 x = rnd((N, D), dtype)
@@ -554,6 +584,9 @@ def phase_tiny():
             if dev == "cuda" and not all(launched[k] for k in kernels):
                 raise AssertionError(f"tiny {label} skipped a kernel: "
                                      f"{launched}")
+            if launched["flash_attention_mma"]:
+                raise AssertionError(f"the f32 tiny {label} engine took the "
+                                     f"bf16 flash kernel: {launched}")
             if cfg.family == "hybrid" and \
                     any(launched[k] for k in ATTENTION + MOE):
                 raise AssertionError(f"the tiny {label} engine launched a "
@@ -635,7 +668,7 @@ def expected_launches(cfg, st, groups):
     calls = chunks + decodes + groups
     exp = {"paged_prefill_attention": L * chunks,
            "paged_attention": L * decodes,
-           "flash_attention": L * groups,
+           "flash_attention": L * groups, "flash_attention_mma": 0,
            "rmsnorm": norms_per_call(cfg) * calls,
            "moe_gmm": 0, "rao_scatter_add": 0, "ssd_scan": 0}
     if cfg.family == "hybrid":
@@ -645,6 +678,8 @@ def expected_launches(cfg, st, groups):
     if cfg.family == "moe":
         exp["moe_gmm"] = 3 * L * calls
         exp["rao_scatter_add"] = L * calls
+    if cfg.param_dtype == "bfloat16":   # bf16 runs the tensor-core kernel
+        exp["flash_attention_mma"] = exp["flash_attention"]
     return exp
 
 
@@ -1296,6 +1331,10 @@ def main(argv=None):
              launches_by_path={a: n[name] for a, n in by_path.items()},
              max_abs_err=max(errs[name]), **meas[name])
         for name in KERNELS]}
+    flash = next(k for k in record["kernels"]
+                 if k["name"] == "flash_attention")
+    flash["launches_mma"] = sum(n["flash_attention_mma"]
+                                for n in by_path.values())
     print(f"[total] wall {time.perf_counter() - t_all:.1f} s")
     print(json.dumps(record))
     print(json.dumps({"ok": True, "device": {

@@ -2,8 +2,9 @@
 
 Every kernel source (``csrc/paged_attention.cu``,
 ``csrc/paged_prefill_attention.cu``, ``csrc/moe_gmm.cu``,
-``csrc/rao_scatter.cu``, ``csrc/flash_attention.cu``,
-``csrc/rmsnorm.cu``, ``csrc/ssd_scan.cu``) compiles in its own ``nvcc``
+``csrc/rao_scatter.cu``, ``csrc/flash_attention.cu`` (f32),
+``csrc/flash_attention_mma.cu`` (bf16, tensor cores), ``csrc/rmsnorm.cu``,
+``csrc/ssd_scan.cu``) compiles in its own ``nvcc``
 process, all started together, and one more ``nvcc`` call links the objects into a
 single shared library with a plain C interface, loaded with ``ctypes`` —
 no PyTorch headers, so the build takes seconds, not minutes.  The library
@@ -28,8 +29,8 @@ from typing import Optional
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 SOURCES = ("paged_attention.cu", "paged_prefill_attention.cu", "moe_gmm.cu",
-           "rao_scatter.cu", "flash_attention.cu", "rmsnorm.cu",
-           "ssd_scan.cu")
+           "rao_scatter.cu", "flash_attention.cu", "flash_attention_mma.cu",
+           "rmsnorm.cu", "ssd_scan.cu")
 HEADERS = ("paged_common.cuh",)
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-Xcompiler", "-fPIC", "-lineinfo", "-Xptxas", "-v")
@@ -111,10 +112,12 @@ def _bind(lib: ctypes.CDLL) -> ctypes.CDLL:
     lib.rao_scatter_add_launch.argtypes = [i, p, p, p, p, i, i, i, p]
     #                          dtype table idx vals scratch N M D stream
     lib.rao_scatter_add_launch.restype = i
-    lib.flash_attention_launch.argtypes = [
-        i, p, p, p, p,                        # dtype, q k v out
-        i, i, i, i, i, i, i, i, f, p]         # B S T H K hd causal window scale stream
-    lib.flash_attention_launch.restype = i
+    for name in ("flash_attention_launch", "flash_attention_mma_launch"):
+        fn = getattr(lib, name)               # f32 / bf16
+        fn.argtypes = [p, p, p, p,            # q k v out
+                       i, i, i, i, i, i, i, i, f, p]
+        #              B S T H K hd causal window scale stream
+        fn.restype = i
     lib.rmsnorm_launch.argtypes = [i, p, p, p, ctypes.c_longlong, i, f, p]
     #                              dtype x w out N D eps stream
     lib.rmsnorm_launch.restype = i

@@ -1,6 +1,8 @@
 // Causal / sliding-window flash attention for Hopper (sm_90a): the prompt
 // forward's self-attention, q (B, S, H, hd) over k, v (B, T, K, hd) with
 // H % K == 0 (GQA), online softmax in f32.
+// It now serves f32 only (TF32-free parity on the CUDA cores); bf16 runs on
+// the tensor cores in flash_attention_mma.cu.
 //
 // Replaces the TPU kernel src/repro/kernels/flash_attention.py
 // (flash_attention -> _kernel, the pl.pallas_call over grid
@@ -9,10 +11,9 @@
 //
 // Bound on this card: at the serving shapes (S <= 300, G = H / K in
 // {3, 4}, hd in {64, 128}) a causal call does 2 * S^2 * H * hd flops
-// over (2 S H + 2 S K) * hd elements — under 295 flops per byte in bf16,
-// so the floor is HBM bytes.  This kernel computes on the CUDA cores in
-// f32, which makes its arithmetic, not the bytes, its limit today
-// (tensor cores via wgmma are a later change).
+// over (2 S H + 2 S K) * hd elements.  In f32 the CUDA cores' 67 TFLOP/s
+// make the arithmetic, not the bytes, its limit; TF32 tensor cores would
+// lose the 1e-4 parity the f32 contract holds.
 //
 // Design (the tile machinery of paged_common.cuh):
 //   * the TPU kernel reads kv heads repeated G times; here one CTA per
@@ -116,22 +117,16 @@ int launch(const void* q, const void* k, const void* v, void* out, int B,
 
 }  // namespace
 
-// dtype: 0 = float32, 1 = bfloat16.  q/out (B, S, H, hd), k/v (B, T, K, hd),
-// all contiguous; B, S, T > 0, H % K == 0, hd % 8 == 0, hd <= 256.
+// float32 only.  q/out (B, S, H, hd), k/v (B, T, K, hd), all contiguous;
+// B, S, T > 0, H % K == 0, hd % 8 == 0, hd <= 256.
 // Returns the cudaError_t of the launch.
-extern "C" int flash_attention_launch(int dtype, const void* q, const void* k,
+extern "C" int flash_attention_launch(const void* q, const void* k,
                                       const void* v, void* out, int B, int S,
                                       int T, int H, int K, int hd, int causal,
                                       int window, float scale, void* stream) {
-  cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (B <= 0 || S <= 0 || T <= 0 || K <= 0 || H % K || hd % 8 ||
       hd > paged::kMaxHd || B > 65535 || K > 65535)
     return (int)cudaErrorInvalidValue;
-  if (dtype == 0)
-    return launch<float>(q, k, v, out, B, S, T, H, K, hd, causal, window,
-                         scale, st);
-  if (dtype == 1)
-    return launch<__nv_bfloat16>(q, k, v, out, B, S, T, H, K, hd, causal,
-                                 window, scale, st);
-  return (int)cudaErrorInvalidValue;
+  return launch<float>(q, k, v, out, B, S, T, H, K, hd, causal, window,
+                       scale, static_cast<cudaStream_t>(stream));
 }

@@ -11,7 +11,9 @@ nothing else does:
 
 ``LAUNCHES`` counts kernel launches per wrapper (the CPU path does not
 count), so a run can show that its main path went through the kernels;
-``reset_launches()`` zeroes it.
+``LAUNCHES["flash_attention_mma"]`` also counts the bf16 launches of
+``flash_attention``, which take the tensor-core kernel
+(``FLASH_KERNELS``); ``reset_launches()`` zeroes it.
 """
 from __future__ import annotations
 
@@ -25,13 +27,17 @@ from repro_torch.kernels import build, ref
 LAUNCHES: Dict[str, int] = {"paged_attention": 0,
                             "paged_prefill_attention": 0,
                             "moe_gmm": 0, "rao_scatter_add": 0,
-                            "flash_attention": 0, "rmsnorm": 0,
-                            "ssd_scan": 0}
+                            "flash_attention": 0, "flash_attention_mma": 0,
+                            "rmsnorm": 0, "ssd_scan": 0}
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 MAX_HEAD_DIM = 256
 MAX_GROUP = 32          # query heads per kv head: one CTA's softmax rows
 MAX_SSD_CHUNK = 128     # ssd_scan: one warp's cumsum, 4 steps a lane
 SMEM_LIMIT = 232448     # opt-in shared memory of one H100 CTA (227 KB)
+# flash_attention's kernel per dtype: bf16 on the tensor cores (mma.sync),
+# f32 on the CUDA cores (plain FMA, no TF32: parity with the plain version)
+FLASH_KERNELS = {torch.bfloat16: "flash_attention_mma_launch",
+                 torch.float32: "flash_attention_launch"}
 
 
 def reset_launches():
@@ -252,7 +258,9 @@ def flash_attention(q, k, v, *, causal: bool = True, window: int = 0):
     """Causal (optionally sliding-window) GQA attention of a prompt over
     its own keys: q (B, S, H, hd), k/v (B, T, K, hd) with H % K == 0, the
     kv heads read directly (no repeat).  See ``kernels.ref.flash_attention``
-    for the contract.  Returns (B, S, H, hd) in q.dtype."""
+    for the contract.  Returns (B, S, H, hd) in q.dtype.  On the card the
+    dtype picks the kernel (``FLASH_KERNELS``): bf16 the tensor-core one,
+    f32 the CUDA-core one."""
     if q.device.type == "cpu":
         return ref.flash_attention(q, k, v, causal=causal, window=window)
     if q.device.type != "cuda":
@@ -264,7 +272,7 @@ def flash_attention(q, k, v, *, causal: bool = True, window: int = 0):
         if t.dtype != q.dtype:
             raise TypeError(f"flash_attention: {name} is {t.dtype}, q is "
                             f"{q.dtype}")
-    if q.dtype not in _DTYPES:
+    if q.dtype not in FLASH_KERNELS:
         raise TypeError(f"flash_attention: dtype {q.dtype} unsupported "
                         f"(float32 or bfloat16)")
     if q.dim() != 4 or k.dim() != 4 or v.shape != k.shape \
@@ -274,6 +282,9 @@ def flash_attention(q, k, v, *, causal: bool = True, window: int = 0):
                          f"(B, S, H, hd), (B, T, K, hd)")
     if not (q.is_contiguous() and k.is_contiguous() and v.is_contiguous()):
         raise ValueError("flash_attention: q, k and v must be contiguous")
+    if any(t.data_ptr() % 16 for t in (q, k, v)):
+        raise ValueError("flash_attention: q, k and v must be 16-byte "
+                         "aligned (the kernels copy rows in 16 bytes)")
     B, S, H, hd = q.shape
     T, K = k.shape[1], k.shape[2]
     if hd % 8 or hd > MAX_HEAD_DIM:
@@ -285,14 +296,17 @@ def flash_attention(q, k, v, *, causal: bool = True, window: int = 0):
     out = torch.empty_like(q)
     if 0 in (B, S, T, H):
         return out.zero_()
-    rc = build.load().flash_attention_launch(
-        _DTYPES[q.dtype], q.data_ptr(), k.data_ptr(), v.data_ptr(),
-        out.data_ptr(), B, S, T, H, K, hd, int(bool(causal)), int(window),
-        1.0 / math.sqrt(hd), _stream_ptr(q.device))
+    kernel = FLASH_KERNELS[q.dtype]
+    rc = getattr(build.load(), kernel)(
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), B, S, T,
+        H, K, hd, int(bool(causal)), int(window), 1.0 / math.sqrt(hd),
+        _stream_ptr(q.device))
     if rc:
-        raise RuntimeError(f"flash_attention kernel launch failed: CUDA "
-                           f"error {rc}")
+        raise RuntimeError(f"flash_attention kernel launch failed "
+                           f"({kernel}): CUDA error {rc}")
     LAUNCHES["flash_attention"] += 1
+    if q.dtype == torch.bfloat16:
+        LAUNCHES["flash_attention_mma"] += 1
     return out
 
 

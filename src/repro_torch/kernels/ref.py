@@ -3,7 +3,9 @@
 Line for line with the jnp oracles of ``repro/kernels/ref.py``: for the
 paged attention kernels a dense gather of the block-table pages, f32
 scores and softmax, output in ``q.dtype``; for ``flash_attention`` the
-same over the prompt's own keys, read per kv head (no repeat to H heads);
+same over the prompt's own keys, read per kv head (no repeat to H heads),
+the weights rounded to ``v.dtype`` before P.V as JAX's ``gqa_attention``
+rounds them;
 for ``moe_gmm`` an f32 einsum cast to ``xe.dtype``; for
 ``rao_scatter_add`` an accumulating index put in f32, cast to the table's
 dtype; for ``rmsnorm`` the f32 formula of ``repro/models/layers.py``; for
@@ -39,8 +41,11 @@ def flash_attention(q, k, v, *, causal: bool = True, window: int = 0,
     reads kv head h // (H / K)).  Query c and key u sit at absolute
     positions c and u; u is live iff u <= c when ``causal`` and
     u > c - window with a window.  f32 scores and sums, masked scores
-    -1e30 with their weight zeroed, denominator clamped at 1e-20.
-    Returns (B, S, H, hd) in q.dtype.
+    -1e30 with their weight zeroed, denominator clamped at 1e-20.  The
+    normalised weights are rounded to v.dtype before P.V, as JAX's
+    ``gqa_attention`` rounds them (``w.astype(v.dtype)``): a no-op at f32,
+    one bf16 rounding per weight at bf16.  P.V then sums in f32 and is
+    rounded once to q.dtype.  Returns (B, S, H, hd) in q.dtype.
     """
     B, S, H, hd = q.shape
     T, K = k.shape[1], k.shape[2]
@@ -58,7 +63,8 @@ def flash_attention(q, k, v, *, causal: bool = True, window: int = 0,
     s = s.masked_fill(~live, NEG_INF)
     p = torch.exp(s - s.amax(dim=-1, keepdim=True)) * live
     den = p.sum(dim=-1, keepdim=True).clamp_min(1e-20)
-    out = torch.einsum("bkgst,btkd->bskgd", p / den, v.float())
+    w = (p / den).to(v.dtype).float()
+    out = torch.einsum("bkgst,btkd->bskgd", w, v.float())
     return out.reshape(B, S, H, hd).to(q.dtype)
 
 

@@ -26,6 +26,7 @@ from repro.configs import reduced as jax_reduced
 from repro.core import rpc as jwire
 from repro.kernels import ops as jops
 from repro.kernels import ref as jref
+from repro.models import layers as jlayers
 from repro.models import moe as jmoe
 from repro.models import transformer as jtr
 from repro.models.model import build_model as jax_build_model
@@ -84,9 +85,9 @@ def _assert_bf16_close(got, exp):
     """Normwise at the north star's bf16 tolerance: the largest difference
     within 2e-2 of the largest magnitude.  Element by element a bf16 value
     of magnitude m carries 2^-8 m of rounding, and the frameworks round at
-    different places through a step (JAX rounds the attention weights to
-    bf16 before P.V, the port's kernels keep them f32), so small entries
-    can differ by a large fraction of themselves."""
+    different places through a step (XLA fuses bf16 elementwise chains
+    under jit and skips roundings that eager PyTorch makes), so small
+    entries can differ by a large fraction of themselves."""
     got, exp = _f32(got), _f32(exp)
     assert got.shape == exp.shape
     err = float(np.abs(got - exp).max())
@@ -149,13 +150,92 @@ def test_plain_flash_attention_any_length(S, T, causal, window):
 
 
 def test_plain_flash_attention_keeps_bf16():
+    """bf16 in, bf16 out, with the contract's one weight rounding: f32
+    scores and softmax, the weights rounded to bf16 before P.V (as JAX's
+    gqa_attention), P.V summed in f32 and rounded once."""
     rng = np.random.RandomState(1)
     q, k, v = (_t(rng.randn(1, 9, 4, 16).astype(np.float32)).bfloat16()
                for _ in range(3))
     got = ops.flash_attention(q, k, v)
-    exp = ref.flash_attention(q.float(), k.float(), v.float())
+    s = torch.einsum("bshd,bthd->bhst", q.float(), k.float()) / 4.0
+    s = s.masked_fill(torch.ones(9, 9, dtype=torch.bool).triu(1), -1e30)
+    w = torch.softmax(s, dim=-1).bfloat16().float()
+    exp = torch.einsum("bhst,bthd->bshd", w, v.float()).bfloat16()
     assert got.dtype == torch.bfloat16
-    torch.testing.assert_close(got.float(), exp.bfloat16().float())
+    torch.testing.assert_close(got.float(), exp.float())
+
+
+@pytest.mark.parametrize("B,S,H,K,hd,window", [
+    (2, 17, 8, 2, 16, 0), (2, 65, 4, 1, 64, 0), (2, 130, 4, 4, 64, 40),
+    (1, 33, 8, 8, 32, 0), (2, 47, 8, 2, 32, 9)])
+def test_plain_flash_attention_bf16_matches_jax_gqa_attention(B, S, H, K, hd,
+                                                              window):
+    """bf16 against JAX's serving attention (``gqa_attention``, the
+    ``attention_impl="xla"`` path) on the same inputs: GQA with H / K = 4
+    and 1, ragged S, with and without a window.  Both round the same
+    softmax weights to bf16 and the f32 P.V once, so they differ only where
+    an f32 sum taken in another order rounds to the other bf16 neighbour:
+    held to 2^-8 of the largest output, the least a bf16 ulp of that
+    magnitude can be."""
+    rng = np.random.RandomState(S + hd + window)
+    q, k, v = (rng.randn(B, S, n, hd).astype(np.float32) for n in (H, K, K))
+    jq, jk, jv = (jnp.asarray(a, jnp.bfloat16) for a in (q, k, v))
+    exp = _f32(jlayers.gqa_attention(jq, jk, jv, window=window))
+    got = ops.flash_attention(*(_t(np.asarray(a, np.float32)).bfloat16()
+                                for a in (jq, jk, jv)), window=window)
+    assert got.dtype == torch.bfloat16
+    np.testing.assert_allclose(_f32(got), exp, rtol=0,
+                               atol=2.0 ** -8 * float(np.abs(exp).max()))
+
+
+class _OnCard(torch.Tensor):
+    """A CPU tensor that reports a CUDA device, so the wrapper's dispatch
+    runs without a card (its launches go to a recording stand-in)."""
+    @property
+    def device(self):
+        return torch.device("cuda", 0)
+
+
+def test_flash_wrapper_dispatches_on_dtype(monkeypatch):
+    """On the card bf16 launches the tensor-core kernel and f32 the
+    CUDA-core one, each counted; a CPU tensor runs the plain version and
+    launches nothing; a device without a kernel raises."""
+    launched = []
+
+    class Lib:
+        def __getattr__(self, name):
+            return lambda *args: launched.append(name) or 0
+    monkeypatch.setattr(ops.build, "load", Lib)
+    monkeypatch.setattr(ops, "_stream_ptr", lambda dev: 0)
+    rng = np.random.RandomState(3)
+    q, k = (_t(rng.randn(1, 5, n, 16).astype(np.float32)) for n in (4, 2))
+    for dtype, kernel, mma in ((torch.bfloat16, "flash_attention_mma_launch",
+                                1),
+                               (torch.float32, "flash_attention_launch", 0)):
+        before = dict(ops.LAUNCHES)
+        qc, kc = (t.to(dtype).as_subclass(_OnCard) for t in (q, k))
+        out = ops.flash_attention(qc, kc, kc)
+        assert launched[-1] == kernel == ops.FLASH_KERNELS[dtype]
+        assert out.shape == q.shape and out.dtype == dtype
+        assert ops.LAUNCHES["flash_attention"] == \
+            before["flash_attention"] + 1
+        assert ops.LAUNCHES["flash_attention_mma"] == \
+            before["flash_attention_mma"] + mma
+        before = dict(ops.LAUNCHES)
+        plain = ops.flash_attention(q.to(dtype), k.to(dtype), k.to(dtype))
+        assert ops.LAUNCHES == before, "the CPU path launched"
+        torch.testing.assert_close(
+            plain, ref.flash_attention(q.to(dtype), k.to(dtype), k.to(dtype)))
+    assert len(launched) == 2
+    shifted = torch.zeros(q.numel() + 1, dtype=torch.bfloat16)[1:] \
+        .view(q.shape).as_subclass(_OnCard)     # 2 bytes off alignment
+    with pytest.raises(ValueError, match="16-byte aligned"):
+        ops.flash_attention(shifted, kc.to(torch.bfloat16),
+                            kc.to(torch.bfloat16))
+    assert len(launched) == 2
+    meta = torch.empty(1, 5, 4, 16, device="meta")
+    with pytest.raises(ValueError, match="no kernel"):
+        ops.flash_attention(meta, meta[:, :, :2], meta[:, :, :2])
 
 
 # ------------------------------------------------------------ rmsnorm
@@ -538,6 +618,34 @@ def test_flash_kernel_matches_plain_on_card(cuda, S, H, K, hd, window,
     torch.testing.assert_close(
         got.float(), ref.flash_attention(q, k, v, window=window).float(),
         atol=tol, rtol=tol)
+
+
+@pytest.mark.parametrize("B,S,T,H,K,hd,window,causal", [
+    (4, 209, 209, 32, 8, 128, 0, True), (4, 189, 189, 32, 32, 112, 0, True),
+    (4, 209, 209, 24, 8, 64, 0, True), (1, 17, 17, 32, 8, 128, 0, True),
+    (4, 300, 300, 32, 8, 128, 100, True), (2, 77, 150, 32, 8, 128, 0, False),
+    (2, 150, 77, 32, 8, 128, 0, True), (1, 33, 33, 4, 2, 40, 0, True)])
+def test_flash_mma_kernel_matches_plain_on_card(cuda, B, S, T, H, K, hd,
+                                                window, causal):
+    """The bf16 tensor-core kernel at the served models' group-call shapes
+    (mistral, zamba2, granite), a ragged S, a window, S != T causal and
+    not, and a head dim padded to 16 (40), within the north star's 2e-2
+    of the plain version; the launch is counted as flash_attention and as
+    its mma variant."""
+    rng = np.random.RandomState(S + T + hd)
+    q = _t(rng.randn(B, S, H, hd).astype(np.float32)).to(cuda, torch.bfloat16)
+    k, v = (_t(rng.randn(B, T, K, hd).astype(np.float32))
+            .to(cuda, torch.bfloat16) for _ in range(2))
+    before = dict(ops.LAUNCHES)
+    got = ops.flash_attention(q, k, v, causal=causal, window=window)
+    torch.cuda.synchronize()
+    assert ops.LAUNCHES["flash_attention"] == before["flash_attention"] + 1
+    assert ops.LAUNCHES["flash_attention_mma"] == \
+        before["flash_attention_mma"] + 1
+    torch.testing.assert_close(
+        got.float(),
+        ref.flash_attention(q, k, v, causal=causal, window=window).float(),
+        atol=2e-2, rtol=2e-2)
 
 
 @pytest.mark.parametrize("dtype,tol", [(torch.float32, 1e-4),
