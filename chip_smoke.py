@@ -10,16 +10,24 @@ prefill, and the dense-cache plane for the hybrid family (zamba2-7b).
 
 Phases (each prints its own lines and wall time; any failure raises):
   1. device   — card name, and name + power limit from nvidia-smi;
-  2. build    — all seven kernels (flash_attention as two sources: the
-                bf16 tensor-core kernel and the f32 CUDA-core one), one
-                nvcc process per source (kernels/build.py);
+  2. build    — all seven kernels (flash_attention and moe_gmm as two
+                sources each: the bf16 tensor-core kernels
+                flash_attention_mma.cu and moe_gmm_wgmma.cu, and the f32
+                ones), one nvcc process per source (kernels/build.py),
+                each kernel's ptxas registers and spills, each source's
+                nvcc seconds;
   3. kernels  — each kernel against its plain PyTorch version: the
                 attention kernels at mistral-nemo-12b's shapes (H=32, K=8,
                 hd=128, bt=16, B=8, ctx up to 512, C in {8, 64}) with
                 ragged lengths, -1 table entries, masked slots and a
                 window; moe_gmm at granite's expert shapes (E=40, C in
-                {8, 512, 37}, D x F in {1536 x 512, 512 x 1536}), every
-                dim ragged (5, 130, 130, 130) and a zero-size case;
+                {8, 512, 37}, D x F in {1536 x 512, 512 x 1536}), C 1 and
+                209 (the capacity group call), one tile (1, 64, 64, 128),
+                a D tail (520) and an F tail (520) inside an expert, w a
+                layer-1 slice of a stacked (L, E, D, F) tensor, every dim
+                ragged (5, 130, 130, 130: D, F not multiples of 8, so the
+                WMMA kernel) and a zero-size case, each bf16 case counted
+                on LAUNCHES["moe_gmm_wgmma"] exactly when TMA takes it;
                 rao_scatter_add at granite's combine
                 shapes (D=1536, M in {320, 20480} random duplicates, and
                 CENTRAL: every update on one row); flash_attention at the
@@ -67,14 +75,23 @@ Phases (each prints its own lines and wall time; any failure raises):
                 rmsnorm 189 per model call, no paged kernel; every bf16
                 flash_attention launch on the tensor-core kernel
                 (LAUNCHES["flash_attention_mma"] equal to
-                LAUNCHES["flash_attention"]);
+                LAUNCHES["flash_attention"]) and every bf16 moe_gmm launch
+                on the TMA / wgmma kernel (LAUNCHES["moe_gmm_wgmma"] equal
+                to LAUNCHES["moe_gmm"]), neither in the f32 tiny engines;
   6. measure  — on inputs each main path itself produced, each kernel's
                 time beside its plain version's, one PyTorch library call
                 that computes the same function (never called by the port:
                 scaled_dot_product_attention, torch.bmm, index_add_,
                 F.rms_norm; none for ssd_scan) and its bound at 3.35 TB/s,
                 989 TFLOP/s bf16 (matmul work) and 67 TFLOP/s f32
-                (elementwise and SSD scan work).
+                (elementwise and SSD scan work); moe_gmm at four calls
+                of the granite chunked path (the gate and the down
+                projection, each at decode and in the tick with the most
+                work) and two of the capacity one-shot path (its largest
+                gate and down group calls), the TMA / wgmma kernel beside
+                the WMMA kernel called through the library on the same
+                inputs, each also timed after an L2 flush that leaves no
+                dirty lines.
 The line before the last is the kernels' JSON record; the last line is
 {"ok": true, "device": {...}}.  Without a card, or without the rest of
 the repository beside it, the script exits non-zero and prints no result.
@@ -118,7 +135,8 @@ KERNELS = {
         source="src/repro_torch/kernels/csrc/paged_prefill_attention.cu",
         replaces="src/repro/kernels/paged_prefill_attention.py:157"),
     "moe_gmm": dict(
-        source="src/repro_torch/kernels/csrc/moe_gmm.cu",
+        source="src/repro_torch/kernels/csrc/moe_gmm_wgmma.cu",
+        wmma_source="src/repro_torch/kernels/csrc/moe_gmm.cu",
         replaces="src/repro/kernels/moe_gmm.py:62"),
     "rao_scatter_add": dict(
         source="src/repro_torch/kernels/csrc/rao_scatter.cu",
@@ -155,17 +173,20 @@ def phase(name):
     return deco
 
 
-def time_ms(fn, reps, flush=None):
+def time_ms(fn, reps, flush=None, clean=False):
     """Median device time of ``fn`` over ``reps`` runs (CUDA events); the
-    L2 is flushed before each run when ``flush`` is given.  A device-side
-    spin before the start event keeps the card busy while the host
-    enqueues ``fn``, so host launch overhead does not count as device
-    time."""
+    L2 is flushed before each run when ``flush`` is given, by writing it
+    (which leaves up to the L2's size of dirty lines for ``fn`` to write
+    back) or, with ``clean``, by reading it.  A device-side spin before
+    the start event keeps the card busy while the host enqueues ``fn``,
+    so host launch overhead does not count as device time."""
     fn()
     torch.cuda.synchronize()
     times = []
     for _ in range(reps):
-        if flush is not None:
+        if flush is not None and clean:
+            flush.max()
+        elif flush is not None:
             flush.zero_()
         torch.cuda._sleep(SPIN_CYCLES)
         s = torch.cuda.Event(enable_timing=True)
@@ -237,14 +258,18 @@ def phase_build():
     build.load()
     print(f"[build] kernels ready in {time.perf_counter() - t0:.2f} s "
           f"(nvcc {build.build_seconds if build.build_seconds is not None else 'cached'} s)")
+    print("[build] nvcc seconds per source (all started together): " +
+          ", ".join(f"{k} {v:.1f}" for k, v in build.nvcc_seconds.items()))
     kernel = "?"
     for line in (build.build_log or "").splitlines():
         m = re.search(r"Compiling entry function '_ZN(\w+)'", line)
-        if m:   # the kernel's name, its int template argument (the bf16
-            # flash kernel's padded head dim) and the bf16 mark
+        if m:   # the kernel's name, its int template arguments (the bf16
+            # flash kernel's padded head dim, moe_gmm_wgmma's tile) and
+            # the bf16 mark
             kernel, rest = _last_name(m.group(1))
-            arg = re.match(r"ILi(\d+)E", rest)
-            kernel += (f"<{arg.group(1)}>" if arg else "") + \
+            args = re.match(r"I((?:Li\d+E)+)E", rest)
+            targs = re.findall(r"Li(\d+)E", args.group(1)) if args else []
+            kernel += (f"<{', '.join(targs)}>" if targs else "") + \
                 (" bf16" if "bfloat16" in line else "")
         if "registers" in line or "spill" in line or "error" in line:
             print(f"[build] {kernel}: {line.strip()}")
@@ -448,28 +473,48 @@ def check_moe_kernels(rng, errs):
         return torch.from_numpy(
             (rng.randn(*shape) * scale).astype(np.float32)).to(DEV, dtype)
     # granite's (C, D, F) at decode, a full chunk and a ragged chunk, for
-    # the gate/up and the down projection; then every dim ragged (D, F not
-    # multiples of 8: the unvectorised bf16 loads)
-    gmm_cases = [(E, C, D, F) for C in (8, 512, 37)
-                 for D, F in ((Dm, Fe), (Fe, Dm))] + [(5, 130, 130, 130)]
+    # the gate/up and the down projection; C 1 and the capacity group
+    # call's 209; one tile; a D tail and an F tail inside an expert (a map
+    # that leaked into the next expert's weights would show in the first);
+    # w as layer 1 of a stacked (L, E, D, F) tensor (a base offset); then
+    # every dim ragged (D, F not multiples of 8: the WMMA kernel's
+    # unvectorised loads).  (E, C, D, F, w stacked)
+    gmm_cases = [(E, C, D, F, False) for C in (8, 512, 37)
+                 for D, F in ((Dm, Fe), (Fe, Dm))]
+    gmm_cases += [(E, 1, Dm, Fe, False), (E, 209, Dm, Fe, False),
+                  (1, 64, 64, 128, False), (4, 64, 520, 512, False),
+                  (4, 64, 512, 520, False), (E, 8, Dm, Fe, True),
+                  (E, 512, Dm, Fe, True), (5, 130, 130, 130, False)]
     for dtype, tol in ((torch.bfloat16, 2e-2), (torch.float32, 1e-4)):
-        for Eg, C, D, F in gmm_cases:
+        for Eg, C, D, F, stacked in gmm_cases:
             xe = rnd((Eg, C, D), dtype)
-            w = rnd((Eg, D, F), dtype, 1 / np.sqrt(D))
-            before = ops.LAUNCHES["moe_gmm"]
+            w = rnd((2, Eg, D, F), dtype, 1 / np.sqrt(D))[1] if stacked \
+                else rnd((Eg, D, F), dtype, 1 / np.sqrt(D))
+            # TMA takes bf16 with D, F multiples of 8 (the bases here are
+            # all 16-byte aligned)
+            tma = dtype == torch.bfloat16 and D % 8 == 0 and F % 8 == 0
+            before = dict(ops.LAUNCHES)
             got = ops.moe_gmm(xe, w)
             exp = ref.moe_gmm(xe, w)
             torch.cuda.synchronize()
             e = max_err(got, exp)
             ok = close(got, exp, tol) and got.shape == (Eg, C, F) and \
-                ops.LAUNCHES["moe_gmm"] == before + 1
+                ops.LAUNCHES["moe_gmm"] == before["moe_gmm"] + 1 and \
+                ops.LAUNCHES["moe_gmm_wgmma"] == \
+                before["moe_gmm_wgmma"] + tma
             k_ms = time_ms(lambda: ops.moe_gmm(xe, w), 5)
-            print(f"[kernels] moe_gmm {str(dtype)[6:]} ({Eg}, {C}, {D}) x "
-                  f"({Eg}, {D}, {F}): max_abs_err {e:.3g} (tol {tol} "
-                  f"abs + rel); kernel {k_ms:.4f} ms")
+            # errors: the TMA kernel's under moe_gmm, moe_gmm.cu's
+            # (WMMA bf16, FMA f32) under moe_gmm_wmma
+            name, key = ("moe_gmm_wgmma", "moe_gmm") if tma else \
+                ("moe_gmm", "moe_gmm_wmma")
+            print(f"[kernels] {name} {str(dtype)[6:]} ({Eg}, {C}, {D}) x "
+                  f"({Eg}, {D}, {F}){' w = stack[1]' if stacked else ''}: "
+                  f"max_abs_err {e:.3g} (tol {tol} abs + rel); kernel "
+                  f"{k_ms:.4f} ms")
             if not ok:
-                raise AssertionError(f"moe_gmm disagrees: {e}")
-            errs["moe_gmm"].append(e)
+                raise AssertionError(f"{name} disagrees or took the wrong "
+                                     f"kernel: {e}, {ops.LAUNCHES}")
+            errs[key].append(e)
         before = ops.LAUNCHES["moe_gmm"]
         empty = ops.moe_gmm(rnd((E, 0, Dm), dtype), rnd((E, Dm, Fe), dtype))
         if empty.shape != (E, 0, Fe) or \
@@ -584,9 +629,9 @@ def phase_tiny():
             if dev == "cuda" and not all(launched[k] for k in kernels):
                 raise AssertionError(f"tiny {label} skipped a kernel: "
                                      f"{launched}")
-            if launched["flash_attention_mma"]:
-                raise AssertionError(f"the f32 tiny {label} engine took the "
-                                     f"bf16 flash kernel: {launched}")
+            if launched["flash_attention_mma"] or launched["moe_gmm_wgmma"]:
+                raise AssertionError(f"the f32 tiny {label} engine took a "
+                                     f"bf16 kernel: {launched}")
             if cfg.family == "hybrid" and \
                     any(launched[k] for k in ATTENTION + MOE):
                 raise AssertionError(f"the tiny {label} engine launched a "
@@ -614,11 +659,13 @@ class Recorder:
     """Keeps the arguments of one call of a kernel wrapper in every model
     call of the main path: call ``offset`` of each run of ``period``
     (layer 0's, unless an offset picks another) — a reference, not a copy;
-    no device sync."""
+    no device sync.  Recorders of one wrapper nest (each wraps what it
+    finds when entered); ``key`` names what it keeps."""
 
-    def __init__(self, name, period, offset=0):
+    def __init__(self, name, period, offset=0, key=None):
         self.name, self.period, self.offset = name, period, offset
-        self.fn = getattr(ops, name)
+        self.key = key or name
+        self.fn = None
         self.calls = []
         self.n = 0
 
@@ -629,6 +676,7 @@ class Recorder:
         return self.fn(*args, **kw)
 
     def __enter__(self):
+        self.fn = getattr(ops, self.name)
         setattr(ops, self.name, self)
         return self
 
@@ -670,7 +718,8 @@ def expected_launches(cfg, st, groups):
            "paged_attention": L * decodes,
            "flash_attention": L * groups, "flash_attention_mma": 0,
            "rmsnorm": norms_per_call(cfg) * calls,
-           "moe_gmm": 0, "rao_scatter_add": 0, "ssd_scan": 0}
+           "moe_gmm": 0, "moe_gmm_wgmma": 0, "rao_scatter_add": 0,
+           "ssd_scan": 0}
     if cfg.family == "hybrid":
         exp["paged_attention"] = 0
         exp["flash_attention"] = transformer.hybrid_layout(cfg)[0] * groups
@@ -678,8 +727,9 @@ def expected_launches(cfg, st, groups):
     if cfg.family == "moe":
         exp["moe_gmm"] = 3 * L * calls
         exp["rao_scatter_add"] = L * calls
-    if cfg.param_dtype == "bfloat16":   # bf16 runs the tensor-core kernel
+    if cfg.param_dtype == "bfloat16":   # bf16 runs the tensor-core kernels
         exp["flash_attention_mma"] = exp["flash_attention"]
+        exp["moe_gmm_wgmma"] = exp["moe_gmm"]
     return exp
 
 
@@ -751,18 +801,19 @@ def phase_serve(path, card, seed=0):
         srv._prefill = checked(srv._prefill, group_rows)
 
     # record layer 0's call of each kernel in every model call (moe_gmm:
-    # its first projection, the gate; rmsnorm: ln1, and on the hybrid the
-    # gated norm of the first Mamba2 layer, the widest)
+    # its first projection, the gate, and as "moe_gmm_down" its third;
+    # rmsnorm: ln1, and on the hybrid the gated norm of the first Mamba2
+    # layer, the widest)
     L = cfg.n_layers
     periods = {"paged_attention": (L, 0), "paged_prefill_attention": (L, 0),
                "flash_attention": (L, 0), "rmsnorm": (2 * L + 1, 0),
-               "moe_gmm": (3 * L, 0), "rao_scatter_add": (L, 0),
-               "ssd_scan": (L, 0)}
+               "moe_gmm": (3 * L, 0), "moe_gmm_down": (3 * L, 2),
+               "rao_scatter_add": (L, 0), "ssd_scan": (L, 0)}
     if cfg.family == "hybrid":
         periods["flash_attention"] = (transformer.hybrid_layout(cfg)[0], 0)
         periods["rmsnorm"] = (norms_per_call(cfg), 3)
-    recorders = [Recorder(name, n, off)
-                 for name, (n, off) in periods.items()]
+    recorders = [Recorder(key.removesuffix("_down"), n, off, key)
+                 for key, (n, off) in periods.items()]
     torch.cuda.synchronize()
     ops.reset_launches()
     t0 = time.perf_counter()
@@ -773,7 +824,7 @@ def phase_serve(path, card, seed=0):
         torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     launches = dict(ops.LAUNCHES)
-    recs = {r.name: r.calls for r in recorders}
+    recs = {r.key: r.calls for r in recorders}
     st = srv.stats
     groups = len(group_rows)
     outs = {}
@@ -979,69 +1030,140 @@ def rao_work(table, idx, vals):
     return M * D * es + 4 * M + 2 * N * D * es, M * D
 
 
-@phase("measure")
-def phase_measure_moe(recs, errs):
-    """Time moe_gmm and rao_scatter_add on the granite path's own inputs
-    (layer 0's call in a decode tick and in the tick with the most work;
-    the record keeps the latter), cold L2."""
-    flush = torch.empty(256 << 20, dtype=torch.uint8, device=DEV)
-    out = {}
-    for name in MOE:
-        calls = recs[name]
-        if name == "moe_gmm":
-            sized = sorted(calls, key=lambda c: gmm_work(*c[0])[1])
-        else:
-            sized = sorted(calls, key=lambda c: rao_work(*c[0])[1])
-        for label, (args, _) in (("decode", sized[0]), ("max", sized[-1])):
-            if name == "moe_gmm":
-                xe, w = args
-                nbytes, flops = gmm_work(xe, w)
-                exp = ref.moe_gmm(xe, w)
-                got = ops.moe_gmm(xe, w)
-                lib = torch.bmm(xe, w)
-                shape = f"{tuple(xe.shape)} x {tuple(w.shape)}"
-                run = partial(ops.moe_gmm, xe, w)
-                plain = partial(ref.moe_gmm, xe, w)
-                library = partial(torch.bmm, xe, w)
-            else:
-                table, idx, vals = args
-                nbytes, flops = rao_work(table, idx, vals)
-                zero = torch.zeros_like(table)        # the path's input
-                exp = ref.rao_scatter_add(zero, idx, vals)
-                got = ops.rao_scatter_add(zero.clone(), idx, vals)
-                lib = zero.clone().index_add_(0, idx, vals)
-                shape = (f"table {tuple(table.shape)} idx {tuple(idx.shape)}"
-                         f" vals {tuple(vals.shape)}")
-                # the kernel and index_add_ accumulate into copies in place
-                run = partial(ops.rao_scatter_add, zero.clone(), idx, vals)
-                plain = partial(ref.rao_scatter_add, zero, idx, vals)
-                library = partial(zero.clone().index_add_, 0, idx, vals)
+def wmma_gmm(xe, w, out):
+    """moe_gmm.cu's bf16 WMMA kernel on xe, w into out, launched through
+    the library (no count): the kernel the TMA / wgmma one replaced on
+    the main path, as the before of phase 6.  Returns the CUDA error."""
+    E, C, D = xe.shape
+    return build.load().moe_gmm_launch(
+        1, xe.data_ptr(), w.data_ptr(), out.data_ptr(), E, C, D,
+        w.shape[2], ops._stream_ptr(xe.device))
+
+
+def measure_gmm(recs, errs, flush, path, ticks=("decode", "max")):
+    """Time moe_gmm at calls of a granite path: layer 0's gate (its first
+    projection) and down projection (its third), each in the model call
+    of each of ``ticks`` — "decode" the one with the least work, "max"
+    the one with the most.  On each: the wrapper (which must take the
+    TMA / wgmma kernel), the WMMA kernel of moe_gmm.cu called through the
+    library on the same inputs, torch.bmm, the plain version and the
+    bound; the first three also after a clean flush.  Returns a row per
+    call, keyed by path, projection, tick and shapes."""
+    rows = {}
+    for proj, key in (("gate", "moe_gmm"), ("down", "moe_gmm_down")):
+        sized = sorted(recs[key], key=lambda c: gmm_work(*c[0])[1])
+        picked = {"decode": sized[0], "max": sized[-1]}
+        for tick in ticks:
+            (xe, w), _ = picked[tick]
+            nbytes, flops = gmm_work(xe, w)
+            exp = ref.moe_gmm(xe, w)
+            before = ops.LAUNCHES["moe_gmm_wgmma"]
+            got = ops.moe_gmm(xe, w)
+            if ops.LAUNCHES["moe_gmm_wgmma"] != before + 1:
+                raise AssertionError(f"moe_gmm {proj} {tick} did not take "
+                                     f"the TMA / wgmma kernel")
+            old = torch.empty_like(got)
+            wmma = partial(wmma_gmm, xe, w, old)
+            if wmma():
+                raise AssertionError("the WMMA kernel did not launch")
+            lib_out = torch.bmm(xe, w)
             torch.cuda.synchronize()
-            err = max_err(got, exp)
-            if not close(got, exp, 2e-2):
-                raise AssertionError(f"{name} disagrees on main-path inputs:"
-                                     f" {err}")
-            errs[name].append(err)
-            lib_err = max_err(lib, exp)
-            k_ms = time_ms(run, 20, flush)
-            p_ms = time_ms(plain, 5, flush)
-            l_ms = time_ms(library, 20, flush)
+            err, old_err = max_err(got, exp), max_err(old, exp)
+            if not (close(got, exp, 2e-2) and close(old, exp, 2e-2)):
+                raise AssertionError(f"moe_gmm {proj} {tick} disagrees on "
+                                     f"main-path inputs: {err}, WMMA "
+                                     f"{old_err}")
+            errs["moe_gmm"].append(err)
+            errs["moe_gmm_wmma"].append(old_err)
+            run = partial(ops.moe_gmm, xe, w)
+            bmm = partial(torch.bmm, xe, w)
+            k_ms, w_ms, l_ms = (time_ms(f, 20, flush)
+                                for f in (run, wmma, bmm))
+            k_cl, w_cl, l_cl = (time_ms(f, 20, flush, clean=True)
+                                for f in (run, wmma, bmm))
+            p_ms = time_ms(partial(ref.moe_gmm, xe, w), 5, flush)
             t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
             t_ops = flops / BF16_FLOPS * 1e3
             bound = max(t_bytes, t_ops)
-            lib_name = "bmm" if name == "moe_gmm" else "index_add_"
-            print(f"[measure] {name} ({label} tick) on main-path inputs "
-                  f"{shape}: kernel {k_ms:.4f} ms, plain {p_ms:.4f} ms, "
-                  f"{lib_name} {l_ms:.4f} ms ({lib_name} vs plain "
-                  f"max_abs_err {lib_err:.3g}); bound {bound:.4f} ms "
-                  f"({nbytes} bytes -> {t_bytes:.4f} ms, {flops} ops -> "
-                  f"{t_ops:.4f} ms); max_abs_err {err:.3g}")
-            if label == "max":
-                out[name] = dict(ms=k_ms, plain_ms=p_ms, library_ms=l_ms,
-                                 bound_ms=float(bound),
-                                 bound_by="bytes" if t_bytes >= t_ops
-                                 else "operations")
+            print(f"[measure] moe_gmm {path} {proj} ({tick} tick) on "
+                  f"main-path inputs {tuple(xe.shape)} x {tuple(w.shape)}: "
+                  f"TMA/wgmma {k_ms:.4f} ms, WMMA {w_ms:.4f} ms, bmm "
+                  f"{l_ms:.4f} ms, plain {p_ms:.4f} ms; after a clean flush "
+                  f"TMA/wgmma {k_cl:.4f}, WMMA {w_cl:.4f}, bmm {l_cl:.4f} "
+                  f"ms; bound {bound:.4f} ms ({nbytes} bytes -> "
+                  f"{t_bytes:.4f} ms, {flops} ops -> {t_ops:.4f} ms); "
+                  f"max_abs_err {err:.3g} (WMMA {old_err:.3g}, bmm vs plain "
+                  f"{max_err(lib_out, exp):.3g})")
+            label = (f"{path}: {proj} {tick} "
+                     f"{tuple(xe.shape)}x{tuple(w.shape)}")
+            rows[label] = dict(
+                ms=k_ms, wmma_ms=w_ms, plain_ms=p_ms, library_ms=l_ms,
+                bound_ms=float(bound),
+                bound_by="bytes" if t_bytes >= t_ops else "operations",
+                clean_ms=k_cl, wmma_clean_ms=w_cl, library_clean_ms=l_cl)
+    return rows
+
+
+@phase("measure")
+def phase_measure_moe(recs, errs):
+    """Time moe_gmm (``measure_gmm``) and rao_scatter_add on the granite
+    chunked path's own inputs (layer 0's call in a decode tick and in the
+    tick with the most work; the record keeps the gate's at the latter,
+    and moe_gmm's other calls under ``shapes``), cold L2."""
+    flush = torch.empty(256 << 20, dtype=torch.uint8, device=DEV)
+    shapes = measure_gmm(recs, errs, flush, "granite chunked")
+    gate_max = next(v for k, v in shapes.items()
+                    if k.startswith("granite chunked: gate max"))
+    out = {"moe_gmm": dict(
+        {k: v for k, v in gate_max.items() if "clean" not in k},
+        shapes=shapes)}
+    sized = sorted(recs["rao_scatter_add"], key=lambda c: rao_work(*c[0])[1])
+    for label, (args, _) in (("decode", sized[0]), ("max", sized[-1])):
+        table, idx, vals = args
+        nbytes, flops = rao_work(table, idx, vals)
+        zero = torch.zeros_like(table)        # the path's input
+        exp = ref.rao_scatter_add(zero, idx, vals)
+        got = ops.rao_scatter_add(zero.clone(), idx, vals)
+        lib = zero.clone().index_add_(0, idx, vals)
+        torch.cuda.synchronize()
+        err = max_err(got, exp)
+        if not close(got, exp, 2e-2):
+            raise AssertionError(f"rao_scatter_add disagrees on main-path "
+                                 f"inputs: {err}")
+        errs["rao_scatter_add"].append(err)
+        lib_err = max_err(lib, exp)
+        # the kernel and index_add_ accumulate into copies in place
+        k_ms = time_ms(partial(ops.rao_scatter_add, zero.clone(), idx,
+                               vals), 20, flush)
+        p_ms = time_ms(partial(ref.rao_scatter_add, zero, idx, vals), 5,
+                       flush)
+        l_ms = time_ms(partial(zero.clone().index_add_, 0, idx, vals), 20,
+                       flush)
+        t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+        t_ops = flops / BF16_FLOPS * 1e3
+        bound = max(t_bytes, t_ops)
+        print(f"[measure] rao_scatter_add ({label} tick) on main-path inputs "
+              f"table {tuple(table.shape)} idx {tuple(idx.shape)} vals "
+              f"{tuple(vals.shape)}: kernel {k_ms:.4f} ms, plain {p_ms:.4f} "
+              f"ms, index_add_ {l_ms:.4f} ms (index_add_ vs plain "
+              f"max_abs_err {lib_err:.3g}); bound {bound:.4f} ms ({nbytes} "
+              f"bytes -> {t_bytes:.4f} ms, {flops} ops -> {t_ops:.4f} ms); "
+              f"max_abs_err {err:.3g}")
+        if label == "max":
+            out["rao_scatter_add"] = dict(
+                ms=k_ms, plain_ms=p_ms, library_ms=l_ms,
+                bound_ms=float(bound),
+                bound_by="bytes" if t_bytes >= t_ops else "operations")
     return out
+
+
+@phase("measure")
+def phase_measure_gmm_oneshot(recs, errs):
+    """Time moe_gmm (``measure_gmm``) at the capacity one-shot path's
+    largest gate and down calls (a group call), whose shapes take other
+    tile widths than the chunked path's, cold L2."""
+    flush = torch.empty(256 << 20, dtype=torch.uint8, device=DEV)
+    return measure_gmm(recs, errs, flush, "granite one-shot", ("max",))
 
 
 def flash_work(q, k, window):
@@ -1291,7 +1413,7 @@ def main(argv=None):
     t_all = time.perf_counter()
     kind, card = phase_device()
     phase_build()
-    errs = {name: [] for name in KERNELS}
+    errs = {name: [] for name in (*KERNELS, "moe_gmm_wmma")}
     phase_kernels(errs)
     if args.quick:
         return 0
@@ -1315,6 +1437,7 @@ def main(argv=None):
     del srv, recs
     name, by_path[name], recs, srv = phase_serve("granite one-shot", card)
     phase_measure_oneshot(recs, errs, name)
+    meas["moe_gmm"]["shapes"].update(phase_measure_gmm_oneshot(recs, errs))
     if args.profile:
         phase_profile(srv)
     del srv, recs
@@ -1335,6 +1458,12 @@ def main(argv=None):
                  if k["name"] == "flash_attention")
     flash["launches_mma"] = sum(n["flash_attention_mma"]
                                 for n in by_path.values())
+    # every bf16 moe_gmm launch of the main path is the TMA / wgmma
+    # kernel's (phase 5); moe_gmm.cu's WMMA kernel is timed beside it
+    gmm = next(k for k in record["kernels"] if k["name"] == "moe_gmm")
+    gmm["launches_wgmma"] = sum(n["moe_gmm_wgmma"]
+                                for n in by_path.values())
+    gmm["wmma_max_abs_err"] = max(errs["moe_gmm_wmma"])
     print(f"[total] wall {time.perf_counter() - t_all:.1f} s")
     print(json.dumps(record))
     print(json.dumps({"ok": True, "device": {

@@ -1,8 +1,9 @@
 """Build and load the hand-written CUDA kernels.
 
 Every kernel source (``csrc/paged_attention.cu``,
-``csrc/paged_prefill_attention.cu``, ``csrc/moe_gmm.cu``,
-``csrc/rao_scatter.cu``, ``csrc/flash_attention.cu`` (f32),
+``csrc/paged_prefill_attention.cu``, ``csrc/moe_gmm.cu`` (f32, and bf16
+shapes TMA does not take), ``csrc/moe_gmm_wgmma.cu`` (bf16, TMA and
+wgmma), ``csrc/rao_scatter.cu``, ``csrc/flash_attention.cu`` (f32),
 ``csrc/flash_attention_mma.cu`` (bf16, tensor cores), ``csrc/rmsnorm.cu``,
 ``csrc/ssd_scan.cu``) compiles in its own ``nvcc``
 process, all started together, and one more ``nvcc`` call links the objects into a
@@ -25,21 +26,23 @@ import subprocess
 import tempfile
 import time
 from pathlib import Path
-from typing import Optional
+from typing import Dict, Optional
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 SOURCES = ("paged_attention.cu", "paged_prefill_attention.cu", "moe_gmm.cu",
-           "rao_scatter.cu", "flash_attention.cu", "flash_attention_mma.cu",
-           "rmsnorm.cu", "ssd_scan.cu")
+           "moe_gmm_wgmma.cu", "rao_scatter.cu", "flash_attention.cu",
+           "flash_attention_mma.cu", "rmsnorm.cu", "ssd_scan.cu")
 HEADERS = ("paged_common.cuh",)
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-Xcompiler", "-fPIC", "-lineinfo", "-Xptxas", "-v")
 
 _lib: Optional[ctypes.CDLL] = None
-# what the last build printed (ptxas register / spill lines) and how long
-# it took; ``None`` when the library came from the cache
+# what the last build printed (ptxas register / spill lines), how long it
+# took, and each source's own nvcc seconds (the processes run together);
+# ``None`` / empty when the library came from the cache
 build_log: Optional[str] = None
 build_seconds: Optional[float] = None
+nvcc_seconds: Dict[str, float] = {}
 
 
 def build_dir() -> Path:
@@ -77,10 +80,20 @@ def _compile(out: Path) -> str:
         objs = [Path(tmpdir) / f"{Path(s).stem}.o" for s in SOURCES]
         cmds = [[nvcc, *NVCC_FLAGS, "-c", "-o", str(o), str(CSRC / s)]
                 for s, o in zip(SOURCES, objs)]
-        procs = [subprocess.Popen(c, stdout=subprocess.PIPE,
-                                  stderr=subprocess.STDOUT, text=True)
-                 for c in cmds]
-        logs = [p.communicate()[0] for p in procs]
+        log_paths = [o.with_suffix(".log") for o in objs]
+        t0 = time.perf_counter()
+        procs = []
+        for cmd, path in zip(cmds, log_paths):
+            with path.open("w") as f:     # the child keeps its own handle
+                procs.append(subprocess.Popen(cmd, stdout=f,
+                                              stderr=subprocess.STDOUT))
+        nvcc_seconds.clear()
+        while len(nvcc_seconds) < len(procs):
+            for s, p in zip(SOURCES, procs):
+                if s not in nvcc_seconds and p.poll() is not None:
+                    nvcc_seconds[s] = time.perf_counter() - t0
+            time.sleep(0.02)
+        logs = [path.read_text() for path in log_paths]
         for cmd, proc, log in zip(cmds, procs, logs):
             if proc.returncode != 0:
                 raise RuntimeError(f"nvcc failed ({proc.returncode}):\n"
@@ -109,6 +122,9 @@ def _bind(lib: ctypes.CDLL) -> ctypes.CDLL:
     lib.moe_gmm_launch.argtypes = [i, p, p, p, i, i, i, i, p]
     #                              dtype xe w out E C D F stream
     lib.moe_gmm_launch.restype = i
+    lib.moe_gmm_wgmma_launch.argtypes = [p, p, p, i, i, i, i, p]
+    #                                    xe w out E C D F stream
+    lib.moe_gmm_wgmma_launch.restype = i
     lib.rao_scatter_add_launch.argtypes = [i, p, p, p, p, i, i, i, p]
     #                          dtype table idx vals scratch N M D stream
     lib.rao_scatter_add_launch.restype = i

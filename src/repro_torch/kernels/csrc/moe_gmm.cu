@@ -3,7 +3,10 @@
 // out (E, C, F), accumulated in f32 and stored in the input dtype.
 //
 // Replaces the TPU kernel src/repro/kernels/moe_gmm.py (moe_gmm -> _kernel,
-// the pl.pallas_call over grid (E, C/bc, F/bf, D/bd)).
+// the pl.pallas_call over grid (E, C/bc, F/bf, D/bd)) for f32, and for the
+// bf16 calls the TMA / wgmma kernel (moe_gmm_wgmma.cu) does not take: D or
+// F not a multiple of 8, or a base not 16-byte aligned (kernels/ops.py,
+// moe_gmm_kernel).
 //
 // Bound on this card: at decode (C = 8 rows per expert) HBM bytes — every
 // call streams one projection's weights (E * D * F elements) for 2 * C
@@ -11,7 +14,7 @@
 // weights meet 2 * E * C * D * F flops, close to the balance point of
 // the bf16 tensor cores.
 //
-// Design (a first, simple kernel; TMA staging and wgmma are later work):
+// Design (a first, simple kernel):
 //   * one CTA per (F tile of 64, C tile of BM, expert); BM = 16 for the
 //     decode-sized C <= 16, else 64, so a decode call does not run 56 idle
 //     rows per tile;

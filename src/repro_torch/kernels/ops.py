@@ -13,7 +13,9 @@ nothing else does:
 count), so a run can show that its main path went through the kernels;
 ``LAUNCHES["flash_attention_mma"]`` also counts the bf16 launches of
 ``flash_attention``, which take the tensor-core kernel
-(``FLASH_KERNELS``); ``reset_launches()`` zeroes it.
+(``FLASH_KERNELS``), and ``LAUNCHES["moe_gmm_wgmma"]`` the launches of
+``moe_gmm`` that take the TMA / wgmma kernel (``moe_gmm_kernel``);
+``reset_launches()`` zeroes it.
 """
 from __future__ import annotations
 
@@ -26,7 +28,8 @@ from repro_torch.kernels import build, ref
 
 LAUNCHES: Dict[str, int] = {"paged_attention": 0,
                             "paged_prefill_attention": 0,
-                            "moe_gmm": 0, "rao_scatter_add": 0,
+                            "moe_gmm": 0, "moe_gmm_wgmma": 0,
+                            "rao_scatter_add": 0,
                             "flash_attention": 0, "flash_attention_mma": 0,
                             "rmsnorm": 0, "ssd_scan": 0}
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
@@ -38,6 +41,18 @@ SMEM_LIMIT = 232448     # opt-in shared memory of one H100 CTA (227 KB)
 # f32 on the CUDA cores (plain FMA, no TF32: parity with the plain version)
 FLASH_KERNELS = {torch.bfloat16: "flash_attention_mma_launch",
                  torch.float32: "flash_attention_launch"}
+
+
+def moe_gmm_kernel(xe, w) -> str:
+    """The kernel a ``moe_gmm`` call launches on the card: bf16 with D and
+    F multiples of 8 and 16-byte aligned bases (TMA's stride and address
+    rules) takes the TMA / wgmma kernel; other bf16 shapes the WMMA one
+    and f32 the FMA one (no TF32), both in ``csrc/moe_gmm.cu``."""
+    if xe.dtype == torch.bfloat16 and xe.shape[2] % 8 == 0 \
+            and w.shape[2] % 8 == 0 and xe.data_ptr() % 16 == 0 \
+            and w.data_ptr() % 16 == 0:
+        return "moe_gmm_wgmma_launch"
+    return "moe_gmm_launch"
 
 
 def reset_launches():
@@ -173,7 +188,8 @@ def moe_gmm(xe, w):
     """Grouped expert matmul: xe (E, C, D) @ w (E, D, F) -> (E, C, F) per
     expert, summed in f32, in ``xe.dtype`` (float32 or bfloat16; w of the
     same dtype).  Any C, D and F; a zero-size operand gives the empty (or
-    all-zero) result without a launch.  See ``kernels.ref.moe_gmm``."""
+    all-zero) result without a launch.  On the card ``moe_gmm_kernel``
+    picks the kernel.  See ``kernels.ref.moe_gmm``."""
     if xe.device.type == "cpu":
         return ref.moe_gmm(xe, w)
     if xe.device.type != "cuda":
@@ -192,14 +208,21 @@ def moe_gmm(xe, w):
     E, C, D = xe.shape
     F = w.shape[2]
     if 0 in (E, C, D, F):
-        return torch.zeros((E, C, F), dtype=xe.dtype, device=xe.device)
-    out = torch.empty((E, C, F), dtype=xe.dtype, device=xe.device)
-    rc = build.load().moe_gmm_launch(
-        _DTYPES[xe.dtype], xe.data_ptr(), w.data_ptr(), out.data_ptr(),
-        E, C, D, F, _stream_ptr(xe.device))
+        return xe.new_zeros((E, C, F))
+    out = xe.new_empty((E, C, F))
+    kernel = moe_gmm_kernel(xe, w)
+    wgmma = kernel == "moe_gmm_wgmma_launch"
+    args = (xe.data_ptr(), w.data_ptr(), out.data_ptr(), E, C, D, F,
+            _stream_ptr(xe.device))
+    lib = build.load()
+    rc = lib.moe_gmm_wgmma_launch(*args) if wgmma \
+        else lib.moe_gmm_launch(_DTYPES[xe.dtype], *args)
     if rc:
-        raise RuntimeError(f"moe_gmm kernel launch failed: CUDA error {rc}")
+        raise RuntimeError(f"moe_gmm kernel launch failed ({kernel}): CUDA "
+                           f"error {rc}")
     LAUNCHES["moe_gmm"] += 1
+    if wgmma:
+        LAUNCHES["moe_gmm_wgmma"] += 1
     return out
 
 

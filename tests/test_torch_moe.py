@@ -104,6 +104,106 @@ def test_plain_moe_gmm_casts_to_the_input_dtype():
     torch.testing.assert_close(got.float(), exp.bfloat16().float())
 
 
+class _OnCard(torch.Tensor):
+    """A CPU tensor that reports a CUDA device, so the wrapper's dispatch
+    runs without a card (its launches go to a recording stand-in)."""
+    @property
+    def device(self):
+        return torch.device("cuda", 0)
+
+
+def _recording_library(monkeypatch, rc=0):
+    """Stand in for the kernel library: every launch is recorded as
+    (function name, arguments) and returns ``rc``."""
+    launched = []
+
+    class Lib:
+        def __getattr__(self, name):
+            return lambda *args: launched.append((name, args)) or rc
+    monkeypatch.setattr(ops.build, "load", Lib)
+    monkeypatch.setattr(ops, "_stream_ptr", lambda dev: 0)
+    return launched
+
+
+def _gmm_operands(case):
+    """(2, 5, 16) x (2, 16, 24) bf16, or the one change ``case`` names."""
+    rng = np.random.RandomState(11)
+    E, C, D, F = 2, 5, 16, 24
+    D = 130 if case == "bf16 D 130" else D
+    F = 130 if case == "bf16 F 130" else F
+    dtype = torch.float32 if case == "f32" else torch.bfloat16
+    xe = _t(rng.randn(E, C, D).astype(np.float32)).to(dtype)
+    w = _t(rng.randn(E, D, F).astype(np.float32)).to(dtype)
+    if case == "bf16 2-byte offset":     # contiguous, 2 bytes off alignment
+        xe = torch.zeros(xe.numel() + 1, dtype=dtype)[1:].view(xe.shape) \
+            .copy_(xe)
+    return xe, w
+
+
+@pytest.mark.parametrize("case,kernel", [
+    ("bf16 aligned", "moe_gmm_wgmma_launch"),
+    ("bf16 D 130", "moe_gmm_launch"),
+    ("bf16 F 130", "moe_gmm_launch"),
+    ("bf16 2-byte offset", "moe_gmm_launch"),
+    ("f32", "moe_gmm_launch")])
+def test_moe_gmm_wrapper_routes_by_dtype_shape_and_alignment(monkeypatch,
+                                                             case, kernel):
+    """On the card, bf16 with D and F multiples of 8 and 16-byte aligned
+    bases (TMA's rules) launches the TMA / wgmma kernel, counted on
+    ``moe_gmm`` and ``moe_gmm_wgmma``; another bf16 shape, a misaligned
+    base or f32 launches ``csrc/moe_gmm.cu``, counted on ``moe_gmm``
+    only.  ``ops.moe_gmm_kernel`` states the rule."""
+    launched = _recording_library(monkeypatch)
+    xe, w = _gmm_operands(case)
+    assert ops.moe_gmm_kernel(xe, w) == kernel
+    before = dict(ops.LAUNCHES)
+    out = ops.moe_gmm(xe.as_subclass(_OnCard), w.as_subclass(_OnCard))
+    E, C, D = xe.shape
+    F = w.shape[2]
+    assert out.shape == (E, C, F) and out.dtype == xe.dtype
+    args = (xe.data_ptr(), w.data_ptr(), out.data_ptr(), E, C, D, F, 0)
+    if kernel == "moe_gmm_launch":
+        args = (ops._DTYPES[xe.dtype],) + args
+    assert launched == [(kernel, args)]
+    wgmma = int(kernel == "moe_gmm_wgmma_launch")
+    assert ops.LAUNCHES["moe_gmm"] == before["moe_gmm"] + 1
+    assert ops.LAUNCHES["moe_gmm_wgmma"] == before["moe_gmm_wgmma"] + wgmma
+
+
+@pytest.mark.parametrize("where", ["cpu", "zero C on the card",
+                                   "zero F on the card"])
+def test_moe_gmm_wrapper_launches_nothing_on_cpu_or_empty(monkeypatch,
+                                                          where):
+    """A CPU tensor runs the plain version; a zero-size operand gives the
+    empty or all-zero result; neither launches nor counts."""
+    launched = _recording_library(monkeypatch)
+    xe, w = _gmm_operands("bf16 aligned")
+    if where == "zero C on the card":
+        xe = xe[:, :0]
+    elif where == "zero F on the card":
+        w = w[:, :, :0].contiguous()
+    if where != "cpu":
+        xe, w = xe.as_subclass(_OnCard), w.as_subclass(_OnCard)
+    before = dict(ops.LAUNCHES)
+    out = ops.moe_gmm(xe, w)
+    assert launched == [] and ops.LAUNCHES == before
+    assert out.shape == (xe.shape[0], xe.shape[1], w.shape[2])
+    out, xe, w = (t.as_subclass(torch.Tensor) for t in (out, xe, w))
+    torch.testing.assert_close(out, ref.moe_gmm(xe, w))
+
+
+def test_moe_gmm_launch_error_raises_without_fallback(monkeypatch):
+    """A failed launch raises with its CUDA error; nothing retries on the
+    other kernel and nothing is counted."""
+    launched = _recording_library(monkeypatch, rc=700)
+    xe, w = (t.as_subclass(_OnCard) for t in _gmm_operands("bf16 aligned"))
+    before = dict(ops.LAUNCHES)
+    with pytest.raises(RuntimeError, match="moe_gmm_wgmma_launch.*700"):
+        ops.moe_gmm(xe, w)
+    assert [name for name, _ in launched] == ["moe_gmm_wgmma_launch"]
+    assert ops.LAUNCHES == before
+
+
 # ------------------------------------------------------------ rao
 @pytest.mark.parametrize("N,D,M", [(16, 8, 128), (64, 16, 256), (8, 4, 128),
                                    (513, 24, 320)])
@@ -360,19 +460,28 @@ def cuda():
     return torch.device("cuda")
 
 
+# granite's gate and down projection at decode and at a full chunk, and a
+# D tail and an F tail inside an expert (the TMA kernel's 3-D maps)
+GMM_MAIN_PATH = [(40, 8, 1536, 512), (40, 512, 1536, 512),
+                 (40, 8, 512, 1536), (40, 512, 512, 1536),
+                 (4, 64, 520, 512), (4, 64, 512, 520)]
+
+
 @pytest.mark.parametrize("dtype,tol", [(torch.float32, 1e-4),
                                        (torch.bfloat16, 2e-2)],
                          ids=["f32", "bf16"])
-@pytest.mark.parametrize("E,C,D,F", GMM_SHAPES)
+@pytest.mark.parametrize("E,C,D,F", GMM_SHAPES + GMM_MAIN_PATH)
 def test_moe_gmm_kernel_matches_plain_on_card(cuda, E, C, D, F, dtype, tol):
     rng = np.random.RandomState(C)
     xe = _t(rng.randn(E, C, D).astype(np.float32)).to(cuda, dtype)
     w = _t((rng.randn(E, D, F) / np.sqrt(D)).astype(np.float32)) \
         .to(cuda, dtype)
-    before = ops.LAUNCHES["moe_gmm"]
+    tma = dtype == torch.bfloat16 and D % 8 == 0 and F % 8 == 0
+    before = dict(ops.LAUNCHES)
     got = ops.moe_gmm(xe, w)
     torch.cuda.synchronize()
-    assert ops.LAUNCHES["moe_gmm"] == before + 1
+    assert ops.LAUNCHES["moe_gmm"] == before["moe_gmm"] + 1
+    assert ops.LAUNCHES["moe_gmm_wgmma"] == before["moe_gmm_wgmma"] + tma
     torch.testing.assert_close(got.float(), ref.moe_gmm(xe, w).float(),
                                atol=tol, rtol=tol)
 
