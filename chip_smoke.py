@@ -10,8 +10,9 @@ prefill, and the dense-cache plane for the hybrid family (zamba2-7b).
 
 Phases (each prints its own lines and wall time; any failure raises):
   1. device   — card name, and name + power limit from nvidia-smi;
-  2. build    — all seven kernels (flash_attention and moe_gmm as two
-                sources each: the bf16 tensor-core kernels
+  2. build    — all seven kernels (paged_prefill_attention,
+                flash_attention and moe_gmm as two sources each: the bf16
+                tensor-core kernels paged_prefill_attention_mma.cu,
                 flash_attention_mma.cu and moe_gmm_wgmma.cu, and the f32
                 ones), one nvcc process per source (kernels/build.py),
                 each kernel's ptxas registers and spills, each source's
@@ -45,7 +46,14 @@ Phases (each prints its own lines and wall time; any failure raises):
                 others |got - plain| <= tol + tol * |plain|, with tol =
                 2e-2 in bf16 and 1e-4 in f32 (TF32 off); ssd_scan 1e-3 in
                 f32 (the JAX suite's test_ssd_scan_sweep), 2e-2 normwise
-                with x in bf16;
+                with x in bf16.  paged_prefill_attention in bf16 runs the
+                tensor-core kernel (LAUNCHES["paged_prefill_attention_mma"]
+                one up, f32 none) at mistral's shapes and at granite's
+                heads (24/8 x 64), hd 120, hd 256 (C 33), hd 232 (C 40),
+                C 1, C 17, G 1,
+                G 8, bt 32 and bt 24, windows 0 and 100, each printing its
+                largest difference and the share of elements that differ
+                at all, which must stay under 1% (f32 softmax weights);
   4. tiny     — tiny f32 engines, each on the card (kernels) and on the
                 CPU (plain versions) with identical greedy tokens: dense
                 and dropless MoE on the chunked plane (a ragged trace),
@@ -68,7 +76,8 @@ Phases (each prints its own lines and wall time; any failure raises):
                 lengths drawn from 17-300, so 4 group calls of 4): every
                 request drains, logits stay finite, and each kernel
                 launched exactly as the ticks say — paged_prefill_attention
-                L per chunk tick, paged_attention L per decode tick,
+                L per chunk tick (bf16: all on the tensor-core kernel,
+                LAUNCHES["paged_prefill_attention_mma"] equal to it), paged_attention L per decode tick,
                 flash_attention L per group call, rmsnorm 2L + 1 per model
                 call, moe_gmm 3L and rao_scatter_add L per model call;
                 zamba2: ssd_scan 81 and flash_attention 13 per group call,
@@ -77,7 +86,7 @@ Phases (each prints its own lines and wall time; any failure raises):
                 (LAUNCHES["flash_attention_mma"] equal to
                 LAUNCHES["flash_attention"]) and every bf16 moe_gmm launch
                 on the TMA / wgmma kernel (LAUNCHES["moe_gmm_wgmma"] equal
-                to LAUNCHES["moe_gmm"]), neither in the f32 tiny engines;
+                to LAUNCHES["moe_gmm"]), none in the f32 tiny engines;
   6. measure  — on inputs each main path itself produced, each kernel's
                 time beside its plain version's, one PyTorch library call
                 that computes the same function (never called by the port:
@@ -91,7 +100,12 @@ Phases (each prints its own lines and wall time; any failure raises):
                 gate and down group calls), the TMA / wgmma kernel beside
                 the WMMA kernel called through the library on the same
                 inputs, each also timed after an L2 flush that leaves no
-                dirty lines.
+                dirty lines; paged_prefill_attention at the mistral and
+                the granite chunk tick with the most work, the
+                tensor-core kernel beside the CUDA-core kernel of
+                paged_prefill_attention.cu called through the library,
+                SDPA over the gathered KV and the plain version, each
+                timed after both flushes.
 The line before the last is the kernels' JSON record; the last line is
 {"ok": true, "device": {...}}.  Without a card, or without the rest of
 the repository beside it, the script exits non-zero and prints no result.
@@ -132,7 +146,9 @@ KERNELS = {
         source="src/repro_torch/kernels/csrc/paged_attention.cu",
         replaces="src/repro/kernels/paged_attention.py:132"),
     "paged_prefill_attention": dict(
-        source="src/repro_torch/kernels/csrc/paged_prefill_attention.cu",
+        source="src/repro_torch/kernels/csrc/paged_prefill_attention_mma.cu",
+        cuda_core_source="src/repro_torch/kernels/csrc/"
+                         "paged_prefill_attention.cu",
         replaces="src/repro/kernels/paged_prefill_attention.py:157"),
     "moe_gmm": dict(
         source="src/repro_torch/kernels/csrc/moe_gmm_wgmma.cu",
@@ -322,32 +338,75 @@ def phase_kernels(errs):
                 raise AssertionError(f"paged_attention disagrees: {e}")
             errs["paged_attention"].append(e)
             for C in (8, 64):
-                ctx = [0, 0, 16, 37, 128, 200, 300, 448]   # 0,0: masked/new
-                q, kp, vp, btab, kn, vn = pool_inputs(
-                    rng, B, H, K, hd, bt, nb, [c + C for c in ctx], dtype,
-                    C=C, neg_inside=((4, 0), (5, 2)), masked=(0,))
-                cx = torch.tensor(ctx, dtype=torch.int32, device=DEV)
-                got = ops.paged_prefill_attention(q, kp, vp, btab, cx, kn,
-                                                  vn, window=window)
-                exp = ref.paged_prefill_attention(q, kp, vp, btab, cx, kn,
-                                                  vn, window=window)
-                torch.cuda.synchronize()
-                e = max_err(got, exp)
-                ok = bool(torch.isfinite(got).all()) and e <= tol
-                k_ms = time_ms(lambda: ops.paged_prefill_attention(
-                    q, kp, vp, btab, cx, kn, vn, window=window), 10)
-                p_ms = time_ms(lambda: ref.paged_prefill_attention(
-                    q, kp, vp, btab, cx, kn, vn, window=window), 3)
-                print(f"[kernels] paged_prefill_attention {str(dtype)[6:]} "
-                      f"C {C} window {window}: max_abs_err {e:.3g} (tol "
-                      f"{tol}); kernel {k_ms:.4f} ms, plain {p_ms:.4f} ms")
-                if not ok:
-                    raise AssertionError(
-                        f"paged_prefill_attention disagrees: {e}")
-                errs["paged_prefill_attention"].append(e)
+                check_prefill(rng, errs, dtype, tol, f"C {C}", H, K, hd, C,
+                              bt, window, timed=True)
+    for label, H, K, hd, C, bt in PREFILL_CASES:
+        for window in (0, 100):
+            check_prefill(rng, errs, torch.bfloat16, 2e-2, label, H, K, hd,
+                          C, bt, window)
     check_moe_kernels(rng, errs)
     check_oneshot_kernels(rng, errs)
     check_ssd_kernel(rng, errs)
+
+
+# bf16 paged_prefill_attention cases beyond mistral's shapes: (label, H,
+# K, hd, C, bt) — granite's heads, a head dim padded to 128, the largest
+# and one padded to 240 (two warps share a row there, the second owning
+# 14 column tiles of 30), chunks of 1 and 17 (no multiple of 16), one and
+# eight query heads per kv head, block sizes larger than 16 and not
+# dividing 64
+PREFILL_CASES = [("granite", 24, 8, 64, 64, 16), ("hd 120", 32, 8, 120, 64, 16),
+                 ("hd 256", 8, 2, 256, 33, 16), ("hd 232", 8, 2, 232, 40, 16),
+                 ("C 1", 32, 8, 128, 1, 16),
+                 ("C 17", 32, 8, 128, 17, 16), ("G 1", 8, 8, 128, 64, 16),
+                 ("G 8", 32, 4, 128, 64, 16), ("bt 32", 32, 8, 128, 64, 32),
+                 ("bt 24", 32, 8, 128, 64, 24)]
+
+
+def check_prefill(rng, errs, dtype, tol, label, H, K, hd, C, bt, window,
+                  timed=False):
+    """paged_prefill_attention against its plain version: 8 slots with
+    ragged contexts up to 448 (a masked slot, a new one), -1 table entries
+    inside the live range.  bf16 must take the tensor-core kernel and keep
+    f32 softmax weights: under 1% of the elements may differ at all (bf16
+    weights change far more)."""
+    B, nb = 8, -(-512 // bt)
+    ctx = [0, 0, 16, 37, 128, 200, 300, 448]           # 0, 0: masked, new
+    q, kp, vp, btab, kn, vn = pool_inputs(
+        rng, B, H, K, hd, bt, nb, [c + C for c in ctx], dtype, C=C,
+        neg_inside=((4, 0), (5, 2)), masked=(0,))
+    cx = torch.tensor(ctx, dtype=torch.int32, device=DEV)
+    run = partial(ops.paged_prefill_attention, q, kp, vp, btab, cx, kn, vn,
+                  window=window)
+    plain = partial(ref.paged_prefill_attention, q, kp, vp, btab, cx, kn, vn,
+                    window=window)
+    mma = int(dtype == torch.bfloat16)
+    before = dict(ops.LAUNCHES)
+    got = run()
+    exp = plain()
+    torch.cuda.synchronize()
+    e = max_err(got, exp)
+    mag = float(exp.float().abs().max())
+    share = float((got != exp).float().mean())
+    ok = bool(torch.isfinite(got).all()) and e <= tol and \
+        ops.LAUNCHES["paged_prefill_attention"] == \
+        before["paged_prefill_attention"] + 1 and \
+        ops.LAUNCHES["paged_prefill_attention_mma"] == \
+        before["paged_prefill_attention_mma"] + mma and \
+        (not mma or share < 0.01)
+    times = ""
+    if timed:
+        times = (f"; kernel {time_ms(run, 10):.4f} ms, plain "
+                 f"{time_ms(plain, 3):.4f} ms")
+    print(f"[kernels] paged_prefill_attention{'_mma' if mma else ''} "
+          f"{str(dtype)[6:]} {label}: H {H} K {K} hd {hd} C {C} bt {bt} "
+          f"window {window}: max_abs_err {e:.3g} (tol {tol}), max|exp| "
+          f"{mag:.4g}, elements that differ {share:.3%}{times}")
+    if not ok:
+        raise AssertionError(f"paged_prefill_attention disagrees or took the "
+                             f"wrong kernel: {e}, {share:.3%}, {ops.LAUNCHES}")
+    errs["paged_prefill_attention" if mma
+         else "paged_prefill_attention_cuda_core"].append(e)
 
 
 def close_normwise(got, exp, tol):
@@ -576,6 +635,9 @@ TINY = dict(n_layers=2, d_model=32, n_heads=2, n_kv_heads=2, head_dim=16,
 CHUNKED_KERNELS = ("paged_prefill_attention", "paged_attention", "rmsnorm")
 ONESHOT_KERNELS = ("flash_attention", "paged_attention", "rmsnorm")
 HYBRID_KERNELS = ("ssd_scan", "flash_attention", "rmsnorm")
+# counts of the kernels that take bf16 only
+BF16_ONLY = ("paged_prefill_attention_mma", "flash_attention_mma",
+             "moe_gmm_wgmma")
 
 
 def leaked(srv):
@@ -629,7 +691,7 @@ def phase_tiny():
             if dev == "cuda" and not all(launched[k] for k in kernels):
                 raise AssertionError(f"tiny {label} skipped a kernel: "
                                      f"{launched}")
-            if launched["flash_attention_mma"] or launched["moe_gmm_wgmma"]:
+            if any(launched[k] for k in BF16_ONLY):
                 raise AssertionError(f"the f32 tiny {label} engine took a "
                                      f"bf16 kernel: {launched}")
             if cfg.family == "hybrid" and \
@@ -715,6 +777,7 @@ def expected_launches(cfg, st, groups):
         st["decode_steps"]
     calls = chunks + decodes + groups
     exp = {"paged_prefill_attention": L * chunks,
+           "paged_prefill_attention_mma": 0,
            "paged_attention": L * decodes,
            "flash_attention": L * groups, "flash_attention_mma": 0,
            "rmsnorm": norms_per_call(cfg) * calls,
@@ -728,6 +791,7 @@ def expected_launches(cfg, st, groups):
         exp["moe_gmm"] = 3 * L * calls
         exp["rao_scatter_add"] = L * calls
     if cfg.param_dtype == "bfloat16":   # bf16 runs the tensor-core kernels
+        exp["paged_prefill_attention_mma"] = exp["paged_prefill_attention"]
         exp["flash_attention_mma"] = exp["flash_attention"]
         exp["moe_gmm_wgmma"] = exp["moe_gmm"]
     return exp
@@ -958,57 +1022,135 @@ def dense_inputs(q, kp, vp, btab, lens, kn, vn, *, chunk):
     return qd.contiguous(), k, v, mask[:, None]
 
 
+def most_work(calls, work_fn):
+    """The recorded attention call with the most flops, with its table and
+    lengths on the host and its (bytes, flops)."""
+    best, best_w = None, -1
+    for args, kw in calls:
+        q, kp, vp, btab, lens, kn, vn = args
+        l_h = lens.cpu().numpy()
+        b_h = btab.cpu().numpy()
+        work = work_fn(q, b_h, l_h, kp, kw.get("window", 0))
+        if work[1] > best_w:
+            best, best_w = (args, kw, b_h, l_h, work), work[1]
+    return best
+
+
+def cuda_core_prefill(args, kw, out):
+    """paged_prefill_attention.cu's kernel in bf16 on the wrapper's
+    arguments, into out, launched through the library (no count): the
+    kernel the tensor-core one replaced on the main path, as the before of
+    phase 6.  Returns the CUDA error."""
+    q, kp, vp, btab, ctx, kn, vn = args
+    B, C, H, hd = q.shape
+    _, bt, K, _ = kp.shape
+    return build.load().paged_prefill_attention_launch(
+        1, q.data_ptr(), kp.data_ptr(), vp.data_ptr(), btab.data_ptr(),
+        ctx.data_ptr(), kn.data_ptr(), vn.data_ptr(), out.data_ptr(), B, C,
+        H, K, hd, bt, btab.shape[1], int(kw.get("window", 0)),
+        1.0 / np.sqrt(hd), ops._stream_ptr(q.device))
+
+
+def measure_prefill(recs, errs, flush, path):
+    """Time paged_prefill_attention on a chunked path's own inputs (layer
+    0's call in the chunk tick with the most work): the wrapper (which must
+    take the tensor-core kernel), the CUDA-core kernel on the same inputs,
+    SDPA over the gathered KV, the plain version and the bound; the first
+    three also after a clean flush.  Returns the row and its label."""
+    args, kw, b_h, l_h, (nbytes, flops) = most_work(
+        recs["paged_prefill_attention"], prefill_work)
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    q, kp = args[0], args[1]
+    exp = ref.paged_prefill_attention(*args, **kw)
+    before = ops.LAUNCHES["paged_prefill_attention_mma"]
+    got = ops.paged_prefill_attention(*args, **kw)
+    if ops.LAUNCHES["paged_prefill_attention_mma"] != before + 1:
+        raise AssertionError(f"paged_prefill_attention ({path}) did not "
+                             f"take the tensor-core kernel")
+    old = torch.empty_like(got)
+    cuda_core = partial(cuda_core_prefill, args, kw, old)
+    if cuda_core():
+        raise AssertionError("the CUDA-core kernel did not launch")
+    qd, k, v, mask = dense_inputs(*args, chunk=True)
+    library = partial(sdpa, qd, k, v, attn_mask=mask)
+    lib = library().transpose(1, 2)
+    torch.cuda.synchronize()
+    err, old_err = max_err(got, exp), max_err(old, exp)
+    if max(err, old_err) > 2e-2 or not bool(torch.isfinite(got).all()):
+        raise AssertionError(f"paged_prefill_attention ({path}) disagrees on "
+                             f"main-path inputs: {err}, CUDA-core {old_err}")
+    errs["paged_prefill_attention"].append(err)
+    errs["paged_prefill_attention_cuda_core"].append(old_err)
+    run = partial(ops.paged_prefill_attention, *args, **kw)
+    k_ms, c_ms, l_ms = (time_ms(f, 20, flush)
+                        for f in (run, cuda_core, library))
+    k_cl, c_cl, l_cl = (time_ms(f, 20, flush, clean=True)
+                        for f in (run, cuda_core, library))
+    p_ms = time_ms(partial(ref.paged_prefill_attention, *args, **kw), 5,
+                   flush)
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    t_ops = flops / BF16_FLOPS * 1e3
+    bound = max(t_bytes, t_ops)
+    K = kp.shape[2]
+    print(f"[measure] paged_prefill_attention {path} on main-path inputs "
+          f"q{tuple(q.shape)} kv heads {K} table{tuple(b_h.shape)} ctx "
+          f"{l_h.tolist()}: tensor-core {k_ms:.4f} ms, CUDA-core {c_ms:.4f} "
+          f"ms, sdpa {l_ms:.4f} ms, plain {p_ms:.4f} ms; after a clean flush "
+          f"tensor-core {k_cl:.4f}, CUDA-core {c_cl:.4f}, sdpa {l_cl:.4f} ms;"
+          f" bound {bound:.4f} ms ({nbytes} bytes -> {t_bytes:.4f} ms, "
+          f"{flops} flops -> {t_ops:.4f} ms); max_abs_err {err:.3g} "
+          f"(CUDA-core {old_err:.3g}, sdpa vs plain {max_err(lib, exp):.3g}),"
+          f" max|exp| {float(exp.float().abs().max()):.4g}, elements that "
+          f"differ {float((got != exp).float().mean()):.3%}")
+    row = dict(ms=k_ms, cuda_core_ms=c_ms, plain_ms=p_ms, library_ms=l_ms,
+               bound_ms=float(bound),
+               bound_by="bytes" if t_bytes >= t_ops else "operations",
+               clean_ms=k_cl, cuda_core_clean_ms=c_cl, library_clean_ms=l_cl)
+    return row, f"{path}: q{tuple(q.shape)} K {K}"
+
+
 @phase("measure")
 def phase_measure(recs, errs):
-    """Time each kernel on the main path's own inputs (the layer-0 call of
-    the tick with the most attention work), cold L2."""
+    """Time each attention kernel on the mistral chunked path's own inputs
+    (the layer-0 call of the tick with the most attention work), cold L2;
+    paged_prefill_attention by ``measure_prefill``, its record keeping the
+    other chunked paths' rows under ``shapes``."""
     flush = torch.empty(256 << 20, dtype=torch.uint8, device=DEV)
-    out = {}
+    row, label = measure_prefill(recs, errs, flush, "mistral chunked")
+    out = {"paged_prefill_attention": dict(
+        {k: v for k, v in row.items() if "clean" not in k},
+        shapes={label: row})}
     sdpa = torch.nn.functional.scaled_dot_product_attention
-    for name in ATTENTION:
-        calls = recs[name]
-        best, best_w = None, -1
-        for args, kw in calls:
-            q, kp, vp, btab, lens, kn, vn = args
-            l_h = lens.cpu().numpy()
-            b_h = btab.cpu().numpy()
-            work = (decode_work if name == "paged_attention"
-                    else prefill_work)(q, b_h, l_h, kp, kw.get("window", 0))
-            if work[1] > best_w:
-                best, best_w = (args, kw, b_h, l_h, work), work[1]
-        args, kw, b_h, l_h, (nbytes, flops) = best
-        fn = getattr(ops, name)
-        plain = getattr(ref, name)
-        got = fn(*args, **kw)
-        exp = plain(*args, **kw)
-        torch.cuda.synchronize()
-        err = max_err(got, exp)
-        if err > 2e-2 or not bool(torch.isfinite(got).all()):
-            raise AssertionError(f"{name} disagrees on main-path inputs: "
-                                 f"{err}")
-        errs[name].append(err)
-        k_ms = time_ms(lambda: fn(*args, **kw), 20, flush)
-        p_ms = time_ms(lambda: plain(*args, **kw), 5, flush)
-        qd, k, v, mask = dense_inputs(
-            *args, chunk=name == "paged_prefill_attention")
-        lib = sdpa(qd, k, v, attn_mask=mask)
-        lib = lib.transpose(1, 2) if name == "paged_prefill_attention" \
-            else lib[:, :, 0]
-        lib_err = max_err(lib, exp)
-        l_ms = time_ms(lambda: sdpa(qd, k, v, attn_mask=mask), 20, flush)
-        t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
-        t_ops = flops / BF16_FLOPS * 1e3
-        bound = max(t_bytes, t_ops)
-        print(f"[measure] {name} on main-path inputs q{tuple(args[0].shape)}"
-              f" table{tuple(b_h.shape)} lens {l_h.tolist()}: kernel "
-              f"{k_ms:.4f} ms, plain {p_ms:.4f} ms, sdpa {l_ms:.4f} ms "
-              f"(sdpa vs plain max_abs_err {lib_err:.3g}); bound "
-              f"{bound:.4f} ms ({nbytes} bytes -> {t_bytes:.4f} ms, "
-              f"{flops} flops -> {t_ops:.4f} ms); max_abs_err {err:.3g}")
-        out[name] = dict(ms=k_ms, plain_ms=p_ms, library_ms=l_ms,
-                         bound_ms=float(bound),
-                         bound_by="bytes" if t_bytes >= t_ops
-                         else "operations")
+    args, kw, b_h, l_h, (nbytes, flops) = most_work(recs["paged_attention"],
+                                                    decode_work)
+    run = partial(ops.paged_attention, *args, **kw)
+    plain = partial(ref.paged_attention, *args, **kw)
+    got = run()
+    exp = plain()
+    torch.cuda.synchronize()
+    err = max_err(got, exp)
+    if err > 2e-2 or not bool(torch.isfinite(got).all()):
+        raise AssertionError(f"paged_attention disagrees on main-path inputs: "
+                             f"{err}")
+    errs["paged_attention"].append(err)
+    k_ms = time_ms(run, 20, flush)
+    p_ms = time_ms(plain, 5, flush)
+    qd, k, v, mask = dense_inputs(*args, chunk=False)
+    library = partial(sdpa, qd, k, v, attn_mask=mask)
+    lib_err = max_err(library()[:, :, 0], exp)
+    l_ms = time_ms(library, 20, flush)
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    t_ops = flops / BF16_FLOPS * 1e3
+    bound = max(t_bytes, t_ops)
+    print(f"[measure] paged_attention on main-path inputs "
+          f"q{tuple(args[0].shape)} table{tuple(b_h.shape)} lens "
+          f"{l_h.tolist()}: kernel {k_ms:.4f} ms, plain {p_ms:.4f} ms, sdpa "
+          f"{l_ms:.4f} ms (sdpa vs plain max_abs_err {lib_err:.3g}); bound "
+          f"{bound:.4f} ms ({nbytes} bytes -> {t_bytes:.4f} ms, {flops} "
+          f"flops -> {t_ops:.4f} ms); max_abs_err {err:.3g}")
+    out["paged_attention"] = dict(
+        ms=k_ms, plain_ms=p_ms, library_ms=l_ms, bound_ms=float(bound),
+        bound_by="bytes" if t_bytes >= t_ops else "operations")
     return out
 
 
@@ -1155,6 +1297,15 @@ def phase_measure_moe(recs, errs):
                 bound_ms=float(bound),
                 bound_by="bytes" if t_bytes >= t_ops else "operations")
     return out
+
+
+@phase("measure")
+def phase_measure_prefill(recs, errs, path):
+    """Time paged_prefill_attention (``measure_prefill``) on another
+    chunked path's own inputs; returns its row under its label."""
+    flush = torch.empty(256 << 20, dtype=torch.uint8, device=DEV)
+    row, label = measure_prefill(recs, errs, flush, path)
+    return {label: row}
 
 
 @phase("measure")
@@ -1413,7 +1564,8 @@ def main(argv=None):
     t_all = time.perf_counter()
     kind, card = phase_device()
     phase_build()
-    errs = {name: [] for name in (*KERNELS, "moe_gmm_wmma")}
+    errs = {name: [] for name in (*KERNELS, "moe_gmm_wmma",
+                                  "paged_prefill_attention_cuda_core")}
     phase_kernels(errs)
     if args.quick:
         return 0
@@ -1432,6 +1584,8 @@ def main(argv=None):
     torch.cuda.empty_cache()
     name, by_path[name], recs, srv = phase_serve("granite chunked", card)
     meas.update(phase_measure_moe(recs, errs))
+    meas["paged_prefill_attention"]["shapes"].update(
+        phase_measure_prefill(recs, errs, "granite chunked"))
     if args.profile:
         phase_profile(srv)
     del srv, recs
@@ -1454,6 +1608,14 @@ def main(argv=None):
              launches_by_path={a: n[name] for a, n in by_path.items()},
              max_abs_err=max(errs[name]), **meas[name])
         for name in KERNELS]}
+    # every bf16 paged_prefill_attention launch of the main path is the
+    # tensor-core kernel's (phase 5); the CUDA-core kernel is timed beside
+    pre = next(k for k in record["kernels"]
+               if k["name"] == "paged_prefill_attention")
+    pre["launches_mma"] = sum(n["paged_prefill_attention_mma"]
+                              for n in by_path.values())
+    pre["cuda_core_max_abs_err"] = max(
+        errs["paged_prefill_attention_cuda_core"])
     flash = next(k for k in record["kernels"]
                  if k["name"] == "flash_attention")
     flash["launches_mma"] = sum(n["flash_attention_mma"]

@@ -1,7 +1,9 @@
 """Build and load the hand-written CUDA kernels.
 
 Every kernel source (``csrc/paged_attention.cu``,
-``csrc/paged_prefill_attention.cu``, ``csrc/moe_gmm.cu`` (f32, and bf16
+``csrc/paged_prefill_attention.cu`` (f32),
+``csrc/paged_prefill_attention_mma.cu`` (bf16, tensor cores),
+``csrc/moe_gmm.cu`` (f32, and bf16
 shapes TMA does not take), ``csrc/moe_gmm_wgmma.cu`` (bf16, TMA and
 wgmma), ``csrc/rao_scatter.cu``, ``csrc/flash_attention.cu`` (f32),
 ``csrc/flash_attention_mma.cu`` (bf16, tensor cores), ``csrc/rmsnorm.cu``,
@@ -29,7 +31,8 @@ from pathlib import Path
 from typing import Dict, Optional
 
 CSRC = Path(__file__).resolve().parent / "csrc"
-SOURCES = ("paged_attention.cu", "paged_prefill_attention.cu", "moe_gmm.cu",
+SOURCES = ("paged_attention.cu", "paged_prefill_attention.cu",
+           "paged_prefill_attention_mma.cu", "moe_gmm.cu",
            "moe_gmm_wgmma.cu", "rao_scatter.cu", "flash_attention.cu",
            "flash_attention_mma.cu", "rmsnorm.cu", "ssd_scan.cu")
 HEADERS = ("paged_common.cuh",)
@@ -119,6 +122,10 @@ def _bind(lib: ctypes.CDLL) -> ctypes.CDLL:
         i, p, p, p, p, p, p, p, p,            # dtype, q .. out
         i, i, i, i, i, i, i, i, f, p]         # B C H K hd bt nb window scale stream
     lib.paged_prefill_attention_launch.restype = i
+    lib.paged_prefill_attention_mma_launch.argtypes = [
+        p, p, p, p, p, p, p, p,               # q .. out (bf16)
+        i, i, i, i, i, i, i, i, f, p]         # B C H K hd bt nb window scale stream
+    lib.paged_prefill_attention_mma_launch.restype = i
     lib.moe_gmm_launch.argtypes = [i, p, p, p, i, i, i, i, p]
     #                              dtype xe w out E C D F stream
     lib.moe_gmm_launch.restype = i

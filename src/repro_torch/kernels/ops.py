@@ -13,9 +13,10 @@ nothing else does:
 count), so a run can show that its main path went through the kernels;
 ``LAUNCHES["flash_attention_mma"]`` also counts the bf16 launches of
 ``flash_attention``, which take the tensor-core kernel
-(``FLASH_KERNELS``), and ``LAUNCHES["moe_gmm_wgmma"]`` the launches of
-``moe_gmm`` that take the TMA / wgmma kernel (``moe_gmm_kernel``);
-``reset_launches()`` zeroes it.
+(``FLASH_KERNELS``), ``LAUNCHES["paged_prefill_attention_mma"]`` those of
+``paged_prefill_attention`` (``PAGED_PREFILL_KERNELS``), and
+``LAUNCHES["moe_gmm_wgmma"]`` the launches of ``moe_gmm`` that take the
+TMA / wgmma kernel (``moe_gmm_kernel``); ``reset_launches()`` zeroes it.
 """
 from __future__ import annotations
 
@@ -28,6 +29,7 @@ from repro_torch.kernels import build, ref
 
 LAUNCHES: Dict[str, int] = {"paged_attention": 0,
                             "paged_prefill_attention": 0,
+                            "paged_prefill_attention_mma": 0,
                             "moe_gmm": 0, "moe_gmm_wgmma": 0,
                             "rao_scatter_add": 0,
                             "flash_attention": 0, "flash_attention_mma": 0,
@@ -41,6 +43,11 @@ SMEM_LIMIT = 232448     # opt-in shared memory of one H100 CTA (227 KB)
 # f32 on the CUDA cores (plain FMA, no TF32: parity with the plain version)
 FLASH_KERNELS = {torch.bfloat16: "flash_attention_mma_launch",
                  torch.float32: "flash_attention_launch"}
+# paged_prefill_attention's kernel per dtype, the same split: bf16 on the
+# tensor cores with f32 softmax weights (hi + lo bf16 parts), f32 on the
+# CUDA cores
+PAGED_PREFILL_KERNELS = {torch.bfloat16: "paged_prefill_attention_mma_launch",
+                         torch.float32: "paged_prefill_attention_launch"}
 
 
 def moe_gmm_kernel(xe, w) -> str:
@@ -151,7 +158,9 @@ def paged_prefill_attention(q, k_pages, v_pages, block_tables, ctx_lens,
     q: (B, C, H, hd); k_pages/v_pages: (P, bt, K, hd); block_tables:
     (B, nb) int32; ctx_lens: (B,) int32; k_new/v_new: (B, C, K, hd).  See
     ``kernels.ref.paged_prefill_attention`` for the contract.
-    Returns (B, C, H, hd).
+    Returns (B, C, H, hd).  On the card the dtype picks the kernel
+    (``PAGED_PREFILL_KERNELS``): bf16 the tensor-core one, f32 the
+    CUDA-core one.
     """
     if q.device.type == "cpu":
         return ref.paged_prefill_attention(q, k_pages, v_pages, block_tables,
@@ -167,20 +176,29 @@ def paged_prefill_attention(q, k_pages, v_pages, block_tables, ctx_lens,
     if k_new.shape != (B, C, K, hd) or v_new.shape != (B, C, K, hd):
         raise ValueError(f"paged_prefill_attention: k_new/v_new must be "
                          f"{(B, C, K, hd)}, got {tuple(k_new.shape)}")
+    if any(t.data_ptr() % 16 for t in (q, k_pages, v_pages, k_new, v_new)):
+        raise ValueError("paged_prefill_attention: q, k_pages, v_pages, "
+                         "k_new and v_new must be 16-byte aligned (the "
+                         "kernels copy rows in 16 bytes)")
     out = torch.empty_like(q)
     if B == 0 or C == 0:
         return out
+    kernel = PAGED_PREFILL_KERNELS[q.dtype]
+    mma = kernel == "paged_prefill_attention_mma_launch"
+    args = (q.data_ptr(), k_pages.data_ptr(), v_pages.data_ptr(),
+            block_tables.data_ptr(), ctx_lens.data_ptr(), k_new.data_ptr(),
+            v_new.data_ptr(), out.data_ptr(), B, C, H, K, hd, bt,
+            block_tables.shape[1], int(window), 1.0 / math.sqrt(hd),
+            _stream_ptr(q.device))
     lib = build.load()
-    rc = lib.paged_prefill_attention_launch(
-        _DTYPES[q.dtype], q.data_ptr(), k_pages.data_ptr(),
-        v_pages.data_ptr(), block_tables.data_ptr(), ctx_lens.data_ptr(),
-        k_new.data_ptr(), v_new.data_ptr(), out.data_ptr(),
-        B, C, H, K, hd, bt, block_tables.shape[1], int(window),
-        1.0 / math.sqrt(hd), _stream_ptr(q.device))
+    rc = lib.paged_prefill_attention_mma_launch(*args) if mma \
+        else lib.paged_prefill_attention_launch(_DTYPES[q.dtype], *args)
     if rc:
-        raise RuntimeError(f"paged_prefill_attention kernel launch failed: "
-                           f"CUDA error {rc}")
+        raise RuntimeError(f"paged_prefill_attention kernel launch failed "
+                           f"({kernel}): CUDA error {rc}")
     LAUNCHES["paged_prefill_attention"] += 1
+    if mma:
+        LAUNCHES["paged_prefill_attention_mma"] += 1
     return out
 
 

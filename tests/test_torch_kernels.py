@@ -4,8 +4,13 @@ On the CPU the port's wrappers run the plain PyTorch versions
 (``repro_torch.kernels.ref``); they must match the JAX Pallas kernels in
 interpret mode and the jnp oracles to 1e-5 at f32, the tolerance of
 ``tests/test_paged_attention.py``.  The hand-written CUDA kernels are
-held against the plain versions on the card (skipped without one).
+held against the plain versions on the card (skipped without one); bf16
+chunked prefill takes the tensor-core kernel, which must keep the f32
+softmax weights of the paged contract.
 """
+import math
+from types import SimpleNamespace
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -17,7 +22,7 @@ from repro.kernels.paged_attention import paged_attention as jax_paged
 from repro.kernels.paged_prefill_attention import (
     paged_prefill_attention as jax_prefill,
 )
-from repro_torch.kernels import ops, ref
+from repro_torch.kernels import build, ops, ref
 
 jax_paged = jax.jit(jax_paged, static_argnames=("window", "interpret"))
 jax_prefill = jax.jit(jax_prefill, static_argnames=("window", "interpret"))
@@ -154,6 +159,60 @@ def test_wrapper_refuses_devices_without_a_kernel(which):
         getattr(ops, which)(*args)
 
 
+def test_paged_prefill_kernel_table():
+    """bf16 takes the tensor-core kernel, f32 the CUDA-core one; both
+    sources are built."""
+    assert ops.PAGED_PREFILL_KERNELS == {
+        torch.bfloat16: "paged_prefill_attention_mma_launch",
+        torch.float32: "paged_prefill_attention_launch"}
+    for src in ("paged_prefill_attention.cu",
+                "paged_prefill_attention_mma.cu"):
+        assert src in build.SOURCES and (build.CSRC / src).is_file()
+    assert "paged_prefill_attention_mma" in ops.LAUNCHES
+
+
+def test_build_binds_the_prefill_launchers():
+    """ctypes passes every pointer of the launchers as c_void_p (an int
+    would cut it to 32 bits): the mma launcher takes q .. out, then B C H
+    K hd bt nb window as ints, the scale and the stream; the CUDA-core one
+    the same after its dtype."""
+    class Lib:
+        """Answers every launcher name with a fresh namespace."""
+        def __getattr__(self, name):
+            fn = SimpleNamespace()
+            setattr(self, name, fn)
+            return fn
+    lib = build._bind(Lib())
+    p, i, f = build.ctypes.c_void_p, build.ctypes.c_int, build.ctypes.c_float
+    mma = [p] * 8 + [i] * 8 + [f, p]
+    assert lib.paged_prefill_attention_mma_launch.argtypes == mma
+    assert lib.paged_prefill_attention_mma_launch.restype == i
+    assert lib.paged_prefill_attention_launch.argtypes == [i] + mma
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
+                         ids=["f32", "bf16"])
+def test_prefill_cpu_call_launches_nothing(dtype):
+    """On the CPU both dtypes run the plain version, whichever kernel the
+    table names for the card."""
+    B, C, H, K, hd, bt, nb, ctx, window, neg, stale = \
+        PREFILL_CASES["c8-neg-inside-g4"]
+    rng = np.random.RandomState(9)
+    P, btab = _table(rng, B, nb, bt, [c + C for c in ctx], neg_inside=neg)
+    arrs = _arrays(rng, [(B, C, H, hd), (P, bt, K, hd), (P, bt, K, hd),
+                         (B, C, K, hd), (B, C, K, hd)])
+    q, kp, vp, kn, vn = (torch.from_numpy(a).to(dtype) for a in arrs)
+    args = (q, kp, vp, torch.from_numpy(btab),
+            torch.tensor(ctx, dtype=torch.int32), kn, vn)
+    before = dict(ops.LAUNCHES)
+    got = ops.paged_prefill_attention(*args, window=window)
+    assert ops.LAUNCHES == before, "the CPU path launched a kernel"
+    assert got.dtype == dtype
+    torch.testing.assert_close(
+        got, ref.paged_prefill_attention(*args, window=window),
+        atol=0, rtol=0)
+
+
 # ------------------------------------------------------------ on the card
 @pytest.fixture
 def cuda():
@@ -186,26 +245,104 @@ def test_decode_kernel_matches_plain_on_card(cuda, name, dtype, tol):
     torch.testing.assert_close(got.float(), exp.float(), atol=tol, rtol=tol)
 
 
-@pytest.mark.parametrize("dtype,tol", [(torch.float32, 1e-4),
-                                       (torch.bfloat16, 2e-2)],
-                         ids=["f32", "bf16"])
-@pytest.mark.parametrize("name", ["c16-window-g4", "c8-neg-inside-g4",
-                                  "c16-stale-outside-g4"])
-def test_prefill_kernel_matches_plain_on_card(cuda, name, dtype, tol):
-    B, C, H, K, hd, bt, nb, ctx, window, neg, stale = PREFILL_CASES[name]
-    rng = np.random.RandomState(8)
+# the card's prefill cases: name -> (B, C, H, K, hd, bt, nb, ctx, window,
+# neg_inside, stale_outside); the first three are PREFILL_CASES', then
+# head dims 64 (granite), 120 (padded to 128), 256 and 232 (padded to
+# 240: two warps share each row's columns unevenly), block sizes 24 (no
+# divisor of the 64-key tile) and 32, chunks of 1 and 17, one and eight
+# query heads per kv head, and windows narrower than the chunk
+CARD_PREFILL_CASES = {
+    name: PREFILL_CASES[name]
+    for name in ("c16-window-g4", "c8-neg-inside-g4", "c16-stale-outside-g4")
+}
+CARD_PREFILL_CASES.update({
+    "hd64-g3": (4, 64, 24, 8, 64, 16, 16, [0, 37, 128, 190], 0,
+                ((2, 1),), False),
+    "hd120-window": (3, 64, 32, 8, 120, 16, 12, [0, 70, 128], 100,
+                     ((1, 0),), False),
+    "hd256-c33": (3, 33, 8, 2, 256, 16, 12, [5, 64, 150], 0, (), True),
+    "hd232-window": (3, 40, 8, 2, 232, 16, 12, [0, 77, 150], 50,
+                     ((1, 2),), False),
+    "bt24-window": (3, 64, 32, 8, 128, 24, 12, [0, 100, 200], 40,
+                    ((2, 3),), False),
+    "bt32": (3, 64, 32, 8, 128, 32, 10, [31, 160, 250], 0, ((1, 2),),
+             False),
+    "c1-g4": (4, 1, 32, 8, 128, 16, 8, [0, 1, 63, 127], 0, (), True),
+    "c17-window": (3, 17, 32, 8, 128, 16, 12, [0, 64, 170], 20, (), False),
+    "g1-window": (3, 64, 8, 8, 128, 16, 13, [0, 96, 130], 70, ((2, 0),),
+                  False),
+    "g8": (3, 64, 32, 4, 128, 16, 13, [0, 64, 129], 0, ((1, 1),), False),
+})
+
+
+def _card_prefill_inputs(name, dtype, device, seed=8):
+    B, C, H, K, hd, bt, nb, ctx, window, neg, stale = CARD_PREFILL_CASES[name]
+    rng = np.random.RandomState(seed)
     P, btab = _table(rng, B, nb, bt, [c + C for c in ctx], neg_inside=neg,
                      stale_outside=stale)
     arrs = _arrays(rng, [(B, C, H, hd), (P, bt, K, hd), (P, bt, K, hd),
                          (B, C, K, hd), (B, C, K, hd)])
-    q, kp, vp, kn, vn = (torch.from_numpy(a).to(cuda, dtype) for a in arrs)
-    bt_d = torch.from_numpy(btab).to(cuda)
-    cx_d = torch.tensor(ctx, dtype=torch.int32, device=cuda)
-    before = ops.LAUNCHES["paged_prefill_attention"]
-    got = ops.paged_prefill_attention(q, kp, vp, bt_d, cx_d, kn, vn,
-                                      window=window)
+    q, kp, vp, kn, vn = (torch.from_numpy(a).to(device, dtype) for a in arrs)
+    return (q, kp, vp, torch.from_numpy(btab).to(device),
+            torch.tensor(ctx, dtype=torch.int32, device=device), kn, vn), \
+        window
+
+
+@pytest.mark.parametrize("dtype,tol", [(torch.float32, 1e-4),
+                                       (torch.bfloat16, 2e-2)],
+                         ids=["f32", "bf16"])
+@pytest.mark.parametrize("name", sorted(CARD_PREFILL_CASES))
+def test_prefill_kernel_matches_plain_on_card(cuda, name, dtype, tol):
+    args, window = _card_prefill_inputs(name, dtype, cuda)
+    before = dict(ops.LAUNCHES)
+    got = ops.paged_prefill_attention(*args, window=window)
     torch.cuda.synchronize()
-    assert ops.LAUNCHES["paged_prefill_attention"] == before + 1
-    exp = ref.paged_prefill_attention(q, kp, vp, bt_d, cx_d, kn, vn,
-                                      window=window)
+    assert ops.LAUNCHES["paged_prefill_attention"] == \
+        before["paged_prefill_attention"] + 1
+    # bf16 on the tensor-core kernel, f32 on the CUDA-core one
+    assert ops.LAUNCHES["paged_prefill_attention_mma"] == \
+        before["paged_prefill_attention_mma"] + (dtype == torch.bfloat16)
+    exp = ref.paged_prefill_attention(*args, window=window)
     torch.testing.assert_close(got.float(), exp.float(), atol=tol, rtol=tol)
+
+
+def _prefill_bf16_weights(q, kp, vp, btab, ctx, kn, vn):
+    """``ref.paged_prefill_attention`` (no window) with its softmax weights
+    rounded to bf16 before P.V: what the f32-weights check must refuse."""
+    B, C, H, hd = q.shape
+    _, bt, K, _ = kp.shape
+    nb, G = btab.shape[1], H // K
+    pages = btab.long().clamp_min(0)
+    kg = torch.cat([kp[pages].reshape(B, nb * bt, K, hd), kn], 1).float()
+    vg = torch.cat([vp[pages].reshape(B, nb * bt, K, hd), vn], 1).float()
+    pos = torch.arange(nb * bt, device=q.device)
+    old = (pos[None] < ctx.long()[:, None]) \
+        & (btab >= 0).repeat_interleave(bt, dim=1)
+    own = torch.ones(C, C, dtype=torch.bool, device=q.device).tril()
+    live = torch.cat([old[:, None].expand(B, C, nb * bt),
+                      own[None].expand(B, C, C)], dim=-1)
+    s = torch.einsum("bckgd,btkd->bkgct", q.reshape(B, C, K, G, hd).float(),
+                     kg) / math.sqrt(hd)
+    s = s.masked_fill(~live[:, None, None], -1e30)
+    w = torch.softmax(s, dim=-1).to(torch.bfloat16).float()
+    out = torch.einsum("bkgct,btkd->bckgd", w, vg)
+    return out.reshape(B, C, H, hd).to(q.dtype)
+
+
+@pytest.mark.parametrize("name", ["hd64-g3", "g8", "c17-window"])
+def test_prefill_mma_keeps_f32_weights_on_card(cuda, name):
+    """bf16 on the tensor-core kernel against the plain version, whose
+    weights are f32: no element is off by more than 2^-8 of the largest
+    |plain output| and under 1% of the elements differ at all.  Weights
+    rounded to bf16 (the flash kernel's contract) change far more of
+    them, at a window-free case."""
+    args, window = _card_prefill_inputs(name, torch.bfloat16, cuda, seed=11)
+    got = ops.paged_prefill_attention(*args, window=window)
+    exp = ref.paged_prefill_attention(*args, window=window)
+    torch.cuda.synchronize()
+    top = float(exp.float().abs().max())
+    assert float((got.float() - exp.float()).abs().max()) <= top * 2 ** -8
+    assert float((got != exp).float().mean()) < 0.01
+    if not window:
+        rounded = _prefill_bf16_weights(*args)
+        assert float((rounded != exp).float().mean()) >= 0.01
