@@ -10,9 +10,11 @@ prefill, and the dense-cache plane for the hybrid family (zamba2-7b).
 
 Phases (each prints its own lines and wall time; any failure raises):
   1. device   — card name, and name + power limit from nvidia-smi;
-  2. build    — all seven kernels (paged_prefill_attention,
-                flash_attention and moe_gmm as two sources each: the bf16
-                tensor-core kernels paged_prefill_attention_mma.cu,
+  2. build    — all seven kernels (paged_attention,
+                paged_prefill_attention, flash_attention and moe_gmm as
+                two sources each: the bf16 kernels
+                paged_attention_split.cu (split-KV over a thread-block
+                cluster), paged_prefill_attention_mma.cu,
                 flash_attention_mma.cu and moe_gmm_wgmma.cu, and the f32
                 ones), one nvcc process per source (kernels/build.py),
                 each kernel's ptxas registers and spills, each source's
@@ -54,6 +56,19 @@ Phases (each prints its own lines and wall time; any failure raises):
                 G 8, bt 32 and bt 24, windows 0 and 100, each printing its
                 largest difference and the share of elements that differ
                 at all, which must stay under 1% (f32 softmax weights);
+                paged_attention in bf16 runs the split-KV kernel
+                (LAUNCHES["paged_attention_split"] one up, f32 none) at
+                mistral's shapes and at DECODE_CASES: granite's heads, hd
+                120, 256 and 40 (17 query heads a kv head: two m-tiles),
+                G 1, 8 and 32, bt 24, 32 and 1 (a 600-entry table), a
+                context over 8 x 64 keys (CTAs walk several tiles), each with an L = 0 slot and -1 entries
+                inside the live range, windows 0 and 100; the one-CTA
+                kernel of paged_attention.cu, called through the library
+                in bf16, is held to the same tolerance beside it; each
+                case prints its launch geometry (CTAs per cluster, ring
+                depth, shared memory, clusters the card holds at once,
+                which must not be 0), its largest difference and the
+                share of elements that differ, under 1%;
   4. tiny     — tiny f32 engines, each on the card (kernels) and on the
                 CPU (plain versions) with identical greedy tokens: dense
                 and dropless MoE on the chunked plane (a ragged trace),
@@ -77,7 +92,10 @@ Phases (each prints its own lines and wall time; any failure raises):
                 request drains, logits stay finite, and each kernel
                 launched exactly as the ticks say — paged_prefill_attention
                 L per chunk tick (bf16: all on the tensor-core kernel,
-                LAUNCHES["paged_prefill_attention_mma"] equal to it), paged_attention L per decode tick,
+                LAUNCHES["paged_prefill_attention_mma"] equal to it),
+                paged_attention L per decode tick (bf16: all on the
+                split-KV kernel, LAUNCHES["paged_attention_split"] equal
+                to it),
                 flash_attention L per group call, rmsnorm 2L + 1 per model
                 call, moe_gmm 3L and rao_scatter_add L per model call;
                 zamba2: ssd_scan 81 and flash_attention 13 per group call,
@@ -105,7 +123,11 @@ Phases (each prints its own lines and wall time; any failure raises):
                 tensor-core kernel beside the CUDA-core kernel of
                 paged_prefill_attention.cu called through the library,
                 SDPA over the gathered KV and the plain version, each
-                timed after both flushes.
+                timed after both flushes; paged_attention the same way at
+                the mistral and the granite chunked paths' decode call
+                with the most work: the split-KV kernel beside the
+                one-CTA kernel of paged_attention.cu called through the
+                library, SDPA over the gathered KV and the plain version.
 The line before the last is the kernels' JSON record; the last line is
 {"ok": true, "device": {...}}.  Without a card, or without the rest of
 the repository beside it, the script exits non-zero and prints no result.
@@ -143,7 +165,8 @@ BF16_FLOPS = 989e12              # H100 SXM dense bf16 tensor peak
 F32_FLOPS = 67e12                # H100 SXM f32 peak outside the tensor cores
 KERNELS = {
     "paged_attention": dict(
-        source="src/repro_torch/kernels/csrc/paged_attention.cu",
+        source="src/repro_torch/kernels/csrc/paged_attention_split.cu",
+        unsplit_source="src/repro_torch/kernels/csrc/paged_attention.cu",
         replaces="src/repro/kernels/paged_attention.py:132"),
     "paged_prefill_attention": dict(
         source="src/repro_torch/kernels/csrc/paged_prefill_attention_mma.cu",
@@ -309,34 +332,14 @@ def _last_name(nested):
 def phase_kernels(errs):
     """Each kernel against its plain version at the model's shapes."""
     rng = np.random.RandomState(0)
-    B, H, K, hd, bt = 8, 32, 8, 128, 16
+    H, K, hd, bt = 32, 8, 128, 16
     nb = 512 // bt
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
-    lens = [0, 16, 17, 100, 255, 300, 511, 64]       # 0 = masked slot
     for dtype, tol in ((torch.bfloat16, 2e-2), (torch.float32, 1e-4)):
         for window in (0, 100):
-            q, kp, vp, btab, kn, vn = pool_inputs(
-                rng, B, H, K, hd, bt, nb, lens, dtype,
-                neg_inside=((3, 1), (6, 0)), masked=(0,))
-            ln = torch.tensor(lens, dtype=torch.int32, device=DEV)
-            got = ops.paged_attention(q, kp, vp, btab, ln, kn, vn,
-                                      window=window)
-            exp = ref.paged_attention(q, kp, vp, btab, ln, kn, vn,
-                                      window=window)
-            torch.cuda.synchronize()
-            e = max_err(got, exp)
-            ok = bool(torch.isfinite(got).all()) and e <= tol
-            k_ms = time_ms(lambda: ops.paged_attention(
-                q, kp, vp, btab, ln, kn, vn, window=window), 10)
-            p_ms = time_ms(lambda: ref.paged_attention(
-                q, kp, vp, btab, ln, kn, vn, window=window), 3)
-            print(f"[kernels] paged_attention {str(dtype)[6:]} window "
-                  f"{window}: max_abs_err {e:.3g} (tol {tol}); kernel "
-                  f"{k_ms:.4f} ms, plain {p_ms:.4f} ms")
-            if not ok:
-                raise AssertionError(f"paged_attention disagrees: {e}")
-            errs["paged_attention"].append(e)
+            check_decode(rng, errs, dtype, tol, "mistral", H, K, hd, bt, nb,
+                         MISTRAL_LENS, window, timed=True)
             for C in (8, 64):
                 check_prefill(rng, errs, dtype, tol, f"C {C}", H, K, hd, C,
                               bt, window, timed=True)
@@ -344,9 +347,111 @@ def phase_kernels(errs):
         for window in (0, 100):
             check_prefill(rng, errs, torch.bfloat16, 2e-2, label, H, K, hd,
                           C, bt, window)
+    for label, H, K, hd, bt, nb, lens in DECODE_CASES:
+        for window in (0, 100):
+            check_decode(rng, errs, torch.bfloat16, 2e-2, label, H, K, hd,
+                         bt, nb, lens, window)
     check_moe_kernels(rng, errs)
     check_oneshot_kernels(rng, errs)
     check_ssd_kernel(rng, errs)
+
+
+# decode lengths of 8 slots: slot 0 is new (L = 0, its table row all -1),
+# slots 3 and 6 have a -1 entry inside the live range (clamped to page 0)
+MISTRAL_LENS = [0, 16, 17, 100, 255, 300, 511, 64]
+NEG_INSIDE = ((3, 1), (6, 0))
+# bf16 paged_attention cases beyond mistral's shapes: (label, H, K, hd,
+# bt, nb, lens) — granite's heads, a head dim padded to 128, the largest,
+# one padded to 48 with 17 query heads a kv head (two m-tiles of 16), one
+# query head a kv head, 8 and 32, block sizes not dividing 64 and larger
+# than 16, one-token blocks in a 600-entry table, and a context over 8 x 64
+# keys (nb 64: each CTA walks two tiles)
+DECODE_CASES = [("granite", 24, 8, 64, 16, 32, MISTRAL_LENS),
+                ("hd 120", 32, 8, 120, 16, 32, MISTRAL_LENS),
+                ("hd 256", 8, 2, 256, 16, 32, MISTRAL_LENS),
+                ("hd 40 G 17", 34, 2, 40, 16, 32, MISTRAL_LENS),
+                ("G 1", 8, 8, 128, 16, 32, MISTRAL_LENS),
+                ("G 8", 32, 4, 128, 16, 32, MISTRAL_LENS),
+                ("G 32", 32, 1, 128, 16, 32, MISTRAL_LENS),
+                ("bt 24", 32, 8, 128, 24, 22, MISTRAL_LENS),
+                ("bt 32", 32, 8, 128, 32, 16, MISTRAL_LENS),
+                ("bt 1", 32, 8, 128, 1, 600, [0, 16, 17, 100, 255, 300, 599,
+                                              64]),
+                ("long", 32, 8, 128, 16, 64, [0, 900, 1023, 513, 1, 64, 700,
+                                              1000]),
+                ("long G 32 hd 256", 32, 1, 256, 16, 64,
+                 [0, 900, 1023, 513, 1, 64, 700, 1000])]
+
+
+def one_cta_decode(args, kw, out):
+    """paged_attention.cu's kernel in bf16 on the wrapper's arguments,
+    into out, launched through the library (no count): the kernel the
+    split-KV one replaced on the main path, as the before of phases 3 and
+    6.  Returns the CUDA error."""
+    q, kp, vp, btab, lens, kn, vn = args
+    B, H, hd = q.shape
+    _, bt, K, _ = kp.shape
+    return build.load().paged_attention_launch(
+        1, q.data_ptr(), kp.data_ptr(), vp.data_ptr(), btab.data_ptr(),
+        lens.data_ptr(), kn.data_ptr(), vn.data_ptr(), out.data_ptr(), B, H,
+        K, hd, bt, btab.shape[1], int(kw.get("window", 0)),
+        1.0 / np.sqrt(hd), ops._stream_ptr(q.device))
+
+
+def check_decode(rng, errs, dtype, tol, label, H, K, hd, bt, nb, lens,
+                 window, timed=False):
+    """paged_attention against its plain version: 8 slots with ``lens``
+    (slot 0 new, with an all--1 row; -1 entries inside the live range of
+    slots 3 and 6).  bf16 must take the split-KV kernel, keep f32 softmax
+    weights (under 1% of the elements differ at all) and launch on a
+    geometry the card holds; the one-CTA kernel is held to the same
+    tolerance beside it."""
+    q, kp, vp, btab, kn, vn = pool_inputs(
+        rng, 8, H, K, hd, bt, nb, lens, dtype, neg_inside=NEG_INSIDE,
+        masked=(0,))
+    ln = torch.tensor(lens, dtype=torch.int32, device=DEV)
+    args = (q, kp, vp, btab, ln, kn, vn)
+    run = partial(ops.paged_attention, *args, window=window)
+    plain = partial(ref.paged_attention, *args, window=window)
+    split = int(dtype == torch.bfloat16)
+    before = dict(ops.LAUNCHES)
+    got = run()
+    exp = plain()
+    old = torch.empty_like(q)
+    if split and one_cta_decode(args, dict(window=window), old):
+        raise AssertionError("the one-CTA decode kernel did not launch")
+    torch.cuda.synchronize()
+    e = max_err(got, exp)
+    share = float((got != exp).float().mean())
+    ok = bool(torch.isfinite(got).all()) and e <= tol and \
+        ops.LAUNCHES["paged_attention"] == before["paged_attention"] + 1 \
+        and ops.LAUNCHES["paged_attention_split"] == \
+        before["paged_attention_split"] + split and \
+        (not split or share < 0.01)
+    extra = ""
+    if split:
+        old_e = max_err(old, exp)
+        ok = ok and old_e <= tol and bool(torch.isfinite(old).all())
+        geo = ops.paged_attention_split_geometry(H, K, hd, bt, nb)
+        ok = ok and geo["clusters"] > 0
+        errs["paged_attention_unsplit"].append(old_e)
+        extra = (f"; one-CTA kernel max_abs_err {old_e:.3g}; geometry "
+                 f"{geo}")
+    if timed:
+        extra += f"; kernel {time_ms(run, 10):.4f} ms"
+        if split:
+            extra += (f", one-CTA kernel "
+                      f"{time_ms(partial(one_cta_decode, args, dict(window=window), old), 10):.4f} ms")
+        extra += f", plain {time_ms(plain, 3):.4f} ms"
+    print(f"[kernels] paged_attention{'_split' if split else ''} "
+          f"{str(dtype)[6:]} {label}: H {H} K {K} hd {hd} bt {bt} nb {nb} "
+          f"window {window}: max_abs_err {e:.3g} (tol {tol}), max|exp| "
+          f"{float(exp.float().abs().max()):.4g}, elements that differ "
+          f"{share:.3%}{extra}")
+    if not ok:
+        raise AssertionError(f"paged_attention disagrees or took the wrong "
+                             f"kernel: {e}, {share:.3%}, {ops.LAUNCHES}")
+    errs["paged_attention"].append(e)
 
 
 # bf16 paged_prefill_attention cases beyond mistral's shapes: (label, H,
@@ -636,8 +741,8 @@ CHUNKED_KERNELS = ("paged_prefill_attention", "paged_attention", "rmsnorm")
 ONESHOT_KERNELS = ("flash_attention", "paged_attention", "rmsnorm")
 HYBRID_KERNELS = ("ssd_scan", "flash_attention", "rmsnorm")
 # counts of the kernels that take bf16 only
-BF16_ONLY = ("paged_prefill_attention_mma", "flash_attention_mma",
-             "moe_gmm_wgmma")
+BF16_ONLY = ("paged_attention_split", "paged_prefill_attention_mma",
+             "flash_attention_mma", "moe_gmm_wgmma")
 
 
 def leaked(srv):
@@ -778,7 +883,7 @@ def expected_launches(cfg, st, groups):
     calls = chunks + decodes + groups
     exp = {"paged_prefill_attention": L * chunks,
            "paged_prefill_attention_mma": 0,
-           "paged_attention": L * decodes,
+           "paged_attention": L * decodes, "paged_attention_split": 0,
            "flash_attention": L * groups, "flash_attention_mma": 0,
            "rmsnorm": norms_per_call(cfg) * calls,
            "moe_gmm": 0, "moe_gmm_wgmma": 0, "rao_scatter_add": 0,
@@ -790,7 +895,8 @@ def expected_launches(cfg, st, groups):
     if cfg.family == "moe":
         exp["moe_gmm"] = 3 * L * calls
         exp["rao_scatter_add"] = L * calls
-    if cfg.param_dtype == "bfloat16":   # bf16 runs the tensor-core kernels
+    if cfg.param_dtype == "bfloat16":   # bf16 runs the redesigned kernels
+        exp["paged_attention_split"] = exp["paged_attention"]
         exp["paged_prefill_attention_mma"] = exp["paged_prefill_attention"]
         exp["flash_attention_mma"] = exp["flash_attention"]
         exp["moe_gmm_wgmma"] = exp["moe_gmm"]
@@ -1109,48 +1215,80 @@ def measure_prefill(recs, errs, flush, path):
     return row, f"{path}: q{tuple(q.shape)} K {K}"
 
 
-@phase("measure")
-def phase_measure(recs, errs):
-    """Time each attention kernel on the mistral chunked path's own inputs
-    (the layer-0 call of the tick with the most attention work), cold L2;
-    paged_prefill_attention by ``measure_prefill``, its record keeping the
-    other chunked paths' rows under ``shapes``."""
-    flush = torch.empty(256 << 20, dtype=torch.uint8, device=DEV)
-    row, label = measure_prefill(recs, errs, flush, "mistral chunked")
-    out = {"paged_prefill_attention": dict(
-        {k: v for k, v in row.items() if "clean" not in k},
-        shapes={label: row})}
-    sdpa = torch.nn.functional.scaled_dot_product_attention
+def measure_decode(recs, errs, flush, path):
+    """Time paged_attention on a paged path's own inputs (layer 0's call in
+    the decode tick with the most work): the wrapper (which must take the
+    split-KV kernel), the one-CTA kernel on the same inputs, SDPA over the
+    gathered KV, the plain version and the bound; the first three also
+    after a clean flush.  Returns the row and its label."""
     args, kw, b_h, l_h, (nbytes, flops) = most_work(recs["paged_attention"],
                                                     decode_work)
-    run = partial(ops.paged_attention, *args, **kw)
-    plain = partial(ref.paged_attention, *args, **kw)
-    got = run()
-    exp = plain()
-    torch.cuda.synchronize()
-    err = max_err(got, exp)
-    if err > 2e-2 or not bool(torch.isfinite(got).all()):
-        raise AssertionError(f"paged_attention disagrees on main-path inputs: "
-                             f"{err}")
-    errs["paged_attention"].append(err)
-    k_ms = time_ms(run, 20, flush)
-    p_ms = time_ms(plain, 5, flush)
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    q, kp = args[0], args[1]
+    _, bt, K, hd = kp.shape
+    exp = ref.paged_attention(*args, **kw)
+    before = ops.LAUNCHES["paged_attention_split"]
+    got = ops.paged_attention(*args, **kw)
+    if ops.LAUNCHES["paged_attention_split"] != before + 1:
+        raise AssertionError(f"paged_attention ({path}) did not take the "
+                             f"split-KV kernel")
+    old = torch.empty_like(got)
+    unsplit = partial(one_cta_decode, args, kw, old)
+    if unsplit():
+        raise AssertionError("the one-CTA decode kernel did not launch")
     qd, k, v, mask = dense_inputs(*args, chunk=False)
     library = partial(sdpa, qd, k, v, attn_mask=mask)
-    lib_err = max_err(library()[:, :, 0], exp)
-    l_ms = time_ms(library, 20, flush)
+    lib = library()[:, :, 0]
+    torch.cuda.synchronize()
+    err, old_err = max_err(got, exp), max_err(old, exp)
+    if max(err, old_err) > 2e-2 or not bool(torch.isfinite(got).all()):
+        raise AssertionError(f"paged_attention ({path}) disagrees on "
+                             f"main-path inputs: {err}, one-CTA {old_err}")
+    errs["paged_attention"].append(err)
+    errs["paged_attention_unsplit"].append(old_err)
+    run = partial(ops.paged_attention, *args, **kw)
+    k_ms, u_ms, l_ms = (time_ms(f, 20, flush)
+                        for f in (run, unsplit, library))
+    k_cl, u_cl, l_cl = (time_ms(f, 20, flush, clean=True)
+                        for f in (run, unsplit, library))
+    p_ms = time_ms(partial(ref.paged_attention, *args, **kw), 5, flush)
     t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
     t_ops = flops / BF16_FLOPS * 1e3
     bound = max(t_bytes, t_ops)
-    print(f"[measure] paged_attention on main-path inputs "
-          f"q{tuple(args[0].shape)} table{tuple(b_h.shape)} lens "
-          f"{l_h.tolist()}: kernel {k_ms:.4f} ms, plain {p_ms:.4f} ms, sdpa "
-          f"{l_ms:.4f} ms (sdpa vs plain max_abs_err {lib_err:.3g}); bound "
-          f"{bound:.4f} ms ({nbytes} bytes -> {t_bytes:.4f} ms, {flops} "
-          f"flops -> {t_ops:.4f} ms); max_abs_err {err:.3g}")
-    out["paged_attention"] = dict(
-        ms=k_ms, plain_ms=p_ms, library_ms=l_ms, bound_ms=float(bound),
-        bound_by="bytes" if t_bytes >= t_ops else "operations")
+    geo = ops.paged_attention_split_geometry(q.shape[1], K, hd, bt,
+                                             b_h.shape[1])
+    print(f"[measure] paged_attention {path} on main-path inputs "
+          f"q{tuple(q.shape)} kv heads {K} table{tuple(b_h.shape)} lens "
+          f"{l_h.tolist()}: split-KV {k_ms:.4f} ms, one-CTA {u_ms:.4f} ms, "
+          f"sdpa {l_ms:.4f} ms, plain {p_ms:.4f} ms; after a clean flush "
+          f"split-KV {k_cl:.4f}, one-CTA {u_cl:.4f}, sdpa {l_cl:.4f} ms; "
+          f"bound {bound:.4f} ms ({nbytes} bytes -> {t_bytes:.4f} ms, "
+          f"{flops} flops -> {t_ops:.4f} ms); geometry {geo}; max_abs_err "
+          f"{err:.3g} (one-CTA {old_err:.3g}, sdpa vs plain "
+          f"{max_err(lib, exp):.3g}), max|exp| "
+          f"{float(exp.float().abs().max()):.4g}, elements that differ "
+          f"{float((got != exp).float().mean()):.3%}")
+    row = dict(ms=k_ms, unsplit_ms=u_ms, plain_ms=p_ms, library_ms=l_ms,
+               bound_ms=float(bound),
+               bound_by="bytes" if t_bytes >= t_ops else "operations",
+               clean_ms=k_cl, unsplit_clean_ms=u_cl, library_clean_ms=l_cl)
+    return row, f"{path}: q{tuple(q.shape)} K {K}"
+
+
+@phase("measure")
+def phase_measure(recs, errs):
+    """Time each attention kernel on the mistral chunked path's own inputs
+    (the layer-0 call of the tick with the most attention work), cold L2:
+    paged_prefill_attention by ``measure_prefill`` and paged_attention by
+    ``measure_decode``, each record keeping the other chunked paths' rows
+    under ``shapes``."""
+    flush = torch.empty(256 << 20, dtype=torch.uint8, device=DEV)
+    out = {}
+    for name, measure in (("paged_prefill_attention", measure_prefill),
+                          ("paged_attention", measure_decode)):
+        row, label = measure(recs, errs, flush, "mistral chunked")
+        out[name] = dict({k: v for k, v in row.items() if "clean" not in k},
+                         shapes={label: row})
     return out
 
 
@@ -1300,12 +1438,17 @@ def phase_measure_moe(recs, errs):
 
 
 @phase("measure")
-def phase_measure_prefill(recs, errs, path):
-    """Time paged_prefill_attention (``measure_prefill``) on another
-    chunked path's own inputs; returns its row under its label."""
+def phase_measure_paged(recs, errs, path):
+    """Time paged_prefill_attention (``measure_prefill``) and
+    paged_attention (``measure_decode``) on another chunked path's own
+    inputs; returns each one's row under its label."""
     flush = torch.empty(256 << 20, dtype=torch.uint8, device=DEV)
-    row, label = measure_prefill(recs, errs, flush, path)
-    return {label: row}
+    out = {}
+    for name, measure in (("paged_prefill_attention", measure_prefill),
+                          ("paged_attention", measure_decode)):
+        row, label = measure(recs, errs, flush, path)
+        out[name] = {label: row}
+    return out
 
 
 @phase("measure")
@@ -1565,7 +1708,8 @@ def main(argv=None):
     kind, card = phase_device()
     phase_build()
     errs = {name: [] for name in (*KERNELS, "moe_gmm_wmma",
-                                  "paged_prefill_attention_cuda_core")}
+                                  "paged_prefill_attention_cuda_core",
+                                  "paged_attention_unsplit")}
     phase_kernels(errs)
     if args.quick:
         return 0
@@ -1584,8 +1728,9 @@ def main(argv=None):
     torch.cuda.empty_cache()
     name, by_path[name], recs, srv = phase_serve("granite chunked", card)
     meas.update(phase_measure_moe(recs, errs))
-    meas["paged_prefill_attention"]["shapes"].update(
-        phase_measure_prefill(recs, errs, "granite chunked"))
+    for name, rows in phase_measure_paged(recs, errs,
+                                          "granite chunked").items():
+        meas[name]["shapes"].update(rows)
     if args.profile:
         phase_profile(srv)
     del srv, recs
@@ -1608,6 +1753,12 @@ def main(argv=None):
              launches_by_path={a: n[name] for a, n in by_path.items()},
              max_abs_err=max(errs[name]), **meas[name])
         for name in KERNELS]}
+    # every bf16 paged_attention launch of the main path is the split-KV
+    # kernel's (phase 5); the one-CTA kernel is timed beside
+    dec = next(k for k in record["kernels"] if k["name"] == "paged_attention")
+    dec["launches_split"] = sum(n["paged_attention_split"]
+                                for n in by_path.values())
+    dec["unsplit_max_abs_err"] = max(errs["paged_attention_unsplit"])
     # every bf16 paged_prefill_attention launch of the main path is the
     # tensor-core kernel's (phase 5); the CUDA-core kernel is timed beside
     pre = next(k for k in record["kernels"]

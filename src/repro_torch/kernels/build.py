@@ -1,6 +1,7 @@
 """Build and load the hand-written CUDA kernels.
 
-Every kernel source (``csrc/paged_attention.cu``,
+Every kernel source (``csrc/paged_attention.cu`` (f32),
+``csrc/paged_attention_split.cu`` (bf16, split-KV over a cluster),
 ``csrc/paged_prefill_attention.cu`` (f32),
 ``csrc/paged_prefill_attention_mma.cu`` (bf16, tensor cores),
 ``csrc/moe_gmm.cu`` (f32, and bf16
@@ -31,7 +32,8 @@ from pathlib import Path
 from typing import Dict, Optional
 
 CSRC = Path(__file__).resolve().parent / "csrc"
-SOURCES = ("paged_attention.cu", "paged_prefill_attention.cu",
+SOURCES = ("paged_attention.cu", "paged_attention_split.cu",
+           "paged_prefill_attention.cu",
            "paged_prefill_attention_mma.cu", "moe_gmm.cu",
            "moe_gmm_wgmma.cu", "rao_scatter.cu", "flash_attention.cu",
            "flash_attention_mma.cu", "rmsnorm.cu", "ssd_scan.cu")
@@ -118,6 +120,13 @@ def _bind(lib: ctypes.CDLL) -> ctypes.CDLL:
         i, p, p, p, p, p, p, p, p,            # dtype, q .. out
         i, i, i, i, i, i, i, f, p]            # B H K hd bt nb window scale stream
     lib.paged_attention_launch.restype = i
+    lib.paged_attention_split_launch.argtypes = [
+        p, p, p, p, p, p, p, p,               # q .. out (bf16)
+        i, i, i, i, i, i, i, f, p]            # B H K hd bt nb window scale stream
+    lib.paged_attention_split_launch.restype = i
+    lib.paged_attention_split_geometry.argtypes = [
+        i, i, i, i, i, ctypes.POINTER(i)]     # H K hd bt nb geometry[4]
+    lib.paged_attention_split_geometry.restype = i
     lib.paged_prefill_attention_launch.argtypes = [
         i, p, p, p, p, p, p, p, p,            # dtype, q .. out
         i, i, i, i, i, i, i, i, f, p]         # B C H K hd bt nb window scale stream

@@ -1,5 +1,6 @@
 // Shared tile machinery of the attention kernels (paged_attention.cu,
-// paged_prefill_attention.cu, flash_attention.cu).
+// paged_prefill_attention.cu, flash_attention.cu; paged_attention_split.cu
+// takes only its helpers: allow_max_smem, warp_max / warp_sum, kNegInf).
 //
 // A CTA owns up to kRows softmax rows (query heads of one kv head, times
 // chunk positions for prefill) and walks the keys in tiles of kTile
@@ -83,14 +84,16 @@ __host__ __device__ inline size_t smem_bytes(int hd) {
          + sizeof(long long) * kTile;
 }
 
-// Raise ``kernel``'s dynamic shared-memory limit to what the largest
-// supported hd needs, once per device.  cudaFuncSetAttribute is a driver
-// call and the decode tick is host-bound, so it is kept off the per-launch
-// path; ``done`` holds one bit per device and is one per kernel
-// instantiation.  A higher limit than a launch uses costs it nothing.
+// Raise ``kernel``'s dynamic shared-memory limit to ``bytes`` (by default
+// what the largest supported hd needs here), once per device.
+// cudaFuncSetAttribute costs a runtime call and the decode tick is
+// host-bound, so it is kept off the per-launch path; ``done`` holds one
+// bit per device and is one per kernel instantiation.  A higher limit
+// than a launch uses costs it nothing.
 template <typename Kernel>
 inline cudaError_t allow_max_smem(Kernel kernel,
-                                  std::atomic<unsigned long long>& done) {
+                                  std::atomic<unsigned long long>& done,
+                                  size_t bytes = smem_bytes(kMaxHd)) {
   int dev = 0;
   cudaError_t err = cudaGetDevice(&dev);
   if (err != cudaSuccess) return err;
@@ -98,7 +101,7 @@ inline cudaError_t allow_max_smem(Kernel kernel,
   if (done.load(std::memory_order_acquire) & bit) return cudaSuccess;
   err = cudaFuncSetAttribute(kernel,
                              cudaFuncAttributeMaxDynamicSharedMemorySize,
-                             (int)smem_bytes(kMaxHd));
+                             (int)bytes);
   if (err == cudaSuccess) done.fetch_or(bit, std::memory_order_release);
   return err;
 }

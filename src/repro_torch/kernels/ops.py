@@ -11,7 +11,9 @@ nothing else does:
 
 ``LAUNCHES`` counts kernel launches per wrapper (the CPU path does not
 count), so a run can show that its main path went through the kernels;
-``LAUNCHES["flash_attention_mma"]`` also counts the bf16 launches of
+``LAUNCHES["paged_attention_split"]`` also counts the bf16 launches of
+``paged_attention``, which take the split-KV cluster kernel
+(``PAGED_DECODE_KERNELS``), ``LAUNCHES["flash_attention_mma"]`` those of
 ``flash_attention``, which take the tensor-core kernel
 (``FLASH_KERNELS``), ``LAUNCHES["paged_prefill_attention_mma"]`` those of
 ``paged_prefill_attention`` (``PAGED_PREFILL_KERNELS``), and
@@ -20,6 +22,7 @@ TMA / wgmma kernel (``moe_gmm_kernel``); ``reset_launches()`` zeroes it.
 """
 from __future__ import annotations
 
+import ctypes
 import math
 from typing import Dict
 
@@ -28,6 +31,7 @@ import torch
 from repro_torch.kernels import build, ref
 
 LAUNCHES: Dict[str, int] = {"paged_attention": 0,
+                            "paged_attention_split": 0,
                             "paged_prefill_attention": 0,
                             "paged_prefill_attention_mma": 0,
                             "moe_gmm": 0, "moe_gmm_wgmma": 0,
@@ -39,6 +43,10 @@ MAX_HEAD_DIM = 256
 MAX_GROUP = 32          # query heads per kv head: one CTA's softmax rows
 MAX_SSD_CHUNK = 128     # ssd_scan: one warp's cumsum, 4 steps a lane
 SMEM_LIMIT = 232448     # opt-in shared memory of one H100 CTA (227 KB)
+# paged_attention's kernel per dtype: bf16 split-KV over a thread-block
+# cluster (f32 softmax weights), f32 one CTA per (slot, kv head)
+PAGED_DECODE_KERNELS = {torch.bfloat16: "paged_attention_split_launch",
+                        torch.float32: "paged_attention_launch"}
 # flash_attention's kernel per dtype: bf16 on the tensor cores (mma.sync),
 # f32 on the CUDA cores (plain FMA, no TF32: parity with the plain version)
 FLASH_KERNELS = {torch.bfloat16: "flash_attention_mma_launch",
@@ -122,6 +130,9 @@ def paged_attention(q, k_pages, v_pages, block_tables, seq_lens,
     q: (B, H, hd); k_pages/v_pages: (P, bt, K, hd); block_tables: (B, nb)
     int32; seq_lens: (B,) int32; k_new/v_new: (B, K, hd).  See
     ``kernels.ref.paged_attention`` for the contract.  Returns (B, H, hd).
+    On the card the dtype picks the kernel (``PAGED_DECODE_KERNELS``):
+    bf16 the split-KV cluster one, f32 the one-CTA one.  The launch is
+    sized from nb and bt alone: seq_lens stays on the device.
     """
     if q.device.type == "cpu":
         return ref.paged_attention(q, k_pages, v_pages, block_tables,
@@ -134,21 +145,45 @@ def paged_attention(q, k_pages, v_pages, block_tables, seq_lens,
     if k_new.shape != (B, K, hd) or v_new.shape != (B, K, hd):
         raise ValueError(f"paged_attention: k_new/v_new must be "
                          f"{(B, K, hd)}, got {tuple(k_new.shape)}")
+    if any(t.data_ptr() % 16 for t in (q, k_pages, v_pages, k_new, v_new)):
+        raise ValueError("paged_attention: q, k_pages, v_pages, k_new and "
+                         "v_new must be 16-byte aligned (the kernels copy "
+                         "rows in 16 bytes)")
     out = torch.empty_like(q)
     if B == 0:
         return out
+    kernel = PAGED_DECODE_KERNELS[q.dtype]
+    split = kernel == "paged_attention_split_launch"
+    args = (q.data_ptr(), k_pages.data_ptr(), v_pages.data_ptr(),
+            block_tables.data_ptr(), seq_lens.data_ptr(), k_new.data_ptr(),
+            v_new.data_ptr(), out.data_ptr(), B, H, K, hd, bt,
+            block_tables.shape[1], int(window), 1.0 / math.sqrt(hd),
+            _stream_ptr(q.device))
     lib = build.load()
-    rc = lib.paged_attention_launch(
-        _DTYPES[q.dtype], q.data_ptr(), k_pages.data_ptr(),
-        v_pages.data_ptr(), block_tables.data_ptr(), seq_lens.data_ptr(),
-        k_new.data_ptr(), v_new.data_ptr(), out.data_ptr(),
-        B, H, K, hd, bt, block_tables.shape[1], int(window),
-        1.0 / math.sqrt(hd), _stream_ptr(q.device))
+    rc = lib.paged_attention_split_launch(*args) if split \
+        else lib.paged_attention_launch(_DTYPES[q.dtype], *args)
     if rc:
-        raise RuntimeError(f"paged_attention kernel launch failed: CUDA "
-                           f"error {rc}")
+        raise RuntimeError(f"paged_attention kernel launch failed "
+                           f"({kernel}): CUDA error {rc}")
     LAUNCHES["paged_attention"] += 1
+    if split:
+        LAUNCHES["paged_attention_split"] += 1
     return out
+
+
+def paged_attention_split_geometry(H, K, hd, bt, nb) -> Dict[str, int]:
+    """The bf16 decode kernel's launch at these shapes: ``split`` CTAs per
+    cluster (one cluster per slot and kv head), ``stages`` of its K/V
+    ring, ``smem`` bytes of shared memory a CTA, and ``clusters``, how
+    many such clusters the current card holds at once
+    (cudaOccupancyMaxActiveClusters; 0: the launch cannot run)."""
+    geometry = (ctypes.c_int * 4)()
+    rc = build.load().paged_attention_split_geometry(H, K, hd, bt, nb,
+                                                     geometry)
+    if rc:
+        raise RuntimeError(f"paged_attention_split_geometry failed: CUDA "
+                           f"error {rc}")
+    return dict(zip(("split", "stages", "smem", "clusters"), geometry))
 
 
 def paged_prefill_attention(q, k_pages, v_pages, block_tables, ctx_lens,

@@ -5,8 +5,9 @@ On the CPU the port's wrappers run the plain PyTorch versions
 interpret mode and the jnp oracles to 1e-5 at f32, the tolerance of
 ``tests/test_paged_attention.py``.  The hand-written CUDA kernels are
 held against the plain versions on the card (skipped without one); bf16
-chunked prefill takes the tensor-core kernel, which must keep the f32
-softmax weights of the paged contract.
+decode takes the split-KV cluster kernel and bf16 chunked prefill the
+tensor-core kernel, both of which must keep the f32 softmax weights of
+the paged contract.
 """
 import math
 from types import SimpleNamespace
@@ -159,6 +160,61 @@ def test_wrapper_refuses_devices_without_a_kernel(which):
         getattr(ops, which)(*args)
 
 
+def test_paged_decode_kernel_table():
+    """bf16 takes the split-KV cluster kernel, f32 the one-CTA one; both
+    sources are built."""
+    assert ops.PAGED_DECODE_KERNELS == {
+        torch.bfloat16: "paged_attention_split_launch",
+        torch.float32: "paged_attention_launch"}
+    for src in ("paged_attention.cu", "paged_attention_split.cu"):
+        assert src in build.SOURCES and (build.CSRC / src).is_file()
+    assert "paged_attention_split" in ops.LAUNCHES
+
+
+def test_build_binds_the_decode_launchers():
+    """ctypes passes every pointer as c_void_p: the split-KV launcher takes
+    q .. out, then B H K hd bt nb window as ints, the scale and the stream;
+    the one-CTA one the same after its dtype; the geometry query H K hd bt
+    nb and a pointer to four ints."""
+    class Lib:
+        def __getattr__(self, name):
+            fn = SimpleNamespace()
+            setattr(self, name, fn)
+            return fn
+    lib = build._bind(Lib())
+    c = build.ctypes
+    p, i, f = c.c_void_p, c.c_int, c.c_float
+    split = [p] * 8 + [i] * 7 + [f, p]
+    assert lib.paged_attention_split_launch.argtypes == split
+    assert lib.paged_attention_split_launch.restype == i
+    assert lib.paged_attention_launch.argtypes == [i] + split
+    assert lib.paged_attention_split_geometry.argtypes == \
+        [i] * 5 + [c.POINTER(i)]
+    assert lib.paged_attention_split_geometry.restype == i
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
+                         ids=["f32", "bf16"])
+def test_decode_cpu_call_launches_nothing(dtype):
+    """On the CPU both dtypes run the plain version, whichever kernel the
+    table names for the card."""
+    B, H, K, hd, bt, nb, lens, window, neg, stale = \
+        DECODE_CASES["neg-inside-window-g1"]
+    rng = np.random.RandomState(10)
+    P, btab = _table(rng, B, nb, bt, lens, neg_inside=neg)
+    arrs = _arrays(rng, [(B, H, hd), (P, bt, K, hd), (P, bt, K, hd),
+                         (B, K, hd), (B, K, hd)])
+    q, kp, vp, kn, vn = (torch.from_numpy(a).to(dtype) for a in arrs)
+    args = (q, kp, vp, torch.from_numpy(btab),
+            torch.tensor(lens, dtype=torch.int32), kn, vn)
+    before = dict(ops.LAUNCHES)
+    got = ops.paged_attention(*args, window=window)
+    assert ops.LAUNCHES == before, "the CPU path launched a kernel"
+    assert got.dtype == dtype
+    torch.testing.assert_close(
+        got, ref.paged_attention(*args, window=window), atol=0, rtol=0)
+
+
 def test_paged_prefill_kernel_table():
     """bf16 takes the tensor-core kernel, f32 the CUDA-core one; both
     sources are built."""
@@ -243,6 +299,152 @@ def test_decode_kernel_matches_plain_on_card(cuda, name, dtype, tol):
     assert ops.LAUNCHES["paged_attention"] == before + 1
     exp = ref.paged_attention(q, kp, vp, bt_d, ln_d, kn, vn, window=window)
     torch.testing.assert_close(got.float(), exp.float(), atol=tol, rtol=tol)
+
+
+# the card's decode cases: name -> (B, H, K, hd, bt, nb, lens, window,
+# neg_inside, stale_outside) — granite's heads, head dims 120 (padded to
+# 128), 256 and 40 (padded to 48, with 17 query heads a kv head: two
+# m-tiles), one, eight and 32 query heads a kv head, block sizes 24 (no
+# divisor of 64) and 32, one-token blocks in a 600-entry table, a new slot (L = 0) beside -1 entries
+# inside the live range, and windows
+CARD_DECODE_CASES = {
+    "granite-window": (4, 24, 8, 64, 16, 24, [0, 37, 217, 294], 100,
+                       ((2, 1),), False),
+    "hd120": (3, 32, 8, 120, 16, 24, [5, 128, 300], 0, ((1, 0),), False),
+    "hd256-window": (3, 8, 2, 256, 16, 24, [64, 200, 380], 100, (), True),
+    "hd40-g17": (3, 34, 2, 40, 16, 24, [1, 150, 383], 0, (), False),
+    "g1": (3, 8, 8, 128, 16, 24, [0, 96, 310], 0, ((2, 0),), False),
+    "g8-window": (3, 32, 4, 128, 16, 24, [17, 64, 290], 100, (), False),
+    "g32": (3, 32, 1, 128, 16, 24, [3, 130, 270], 0, ((1, 2),), True),
+    "bt24": (3, 32, 8, 128, 24, 16, [0, 100, 380], 0, ((2, 3),), False),
+    "bt32-window": (3, 32, 8, 128, 32, 12, [31, 160, 383], 100,
+                    ((1, 2),), False),
+    "bt1-wide-table": (2, 32, 8, 128, 1, 600, [599, 250], 0, ((0, 7),),
+                       False),
+    "new-slot-neg-inside": (4, 32, 8, 128, 16, 24, [0, 16, 250, 300], 0,
+                            ((1, 0), (2, 3), (3, 10)), False),
+}
+
+
+def _card_decode_inputs(cases, name, dtype, device, seed=12):
+    B, H, K, hd, bt, nb, lens, window, neg, stale = cases[name]
+    rng = np.random.RandomState(seed)
+    P, btab = _table(rng, B, nb, bt, lens, neg_inside=neg,
+                     stale_outside=stale)
+    arrs = _arrays(rng, [(B, H, hd), (P, bt, K, hd), (P, bt, K, hd),
+                         (B, K, hd), (B, K, hd)])
+    q, kp, vp, kn, vn = (torch.from_numpy(a).to(device, dtype) for a in arrs)
+    return (q, kp, vp, torch.from_numpy(btab).to(device),
+            torch.tensor(lens, dtype=torch.int32, device=device), kn, vn), \
+        window
+
+
+def _decode_on_card(args, window, dtype, tol):
+    """One decode call, its launch counts (bf16 on the split-KV kernel)
+    and its agreement with the plain version."""
+    before = dict(ops.LAUNCHES)
+    got = ops.paged_attention(*args, window=window)
+    torch.cuda.synchronize()
+    assert ops.LAUNCHES["paged_attention"] == before["paged_attention"] + 1
+    assert ops.LAUNCHES["paged_attention_split"] == \
+        before["paged_attention_split"] + (dtype == torch.bfloat16)
+    exp = ref.paged_attention(*args, window=window)
+    torch.testing.assert_close(got.float(), exp.float(), atol=tol, rtol=tol)
+    return got, exp
+
+
+@pytest.mark.parametrize("dtype,tol", [(torch.float32, 1e-4),
+                                       (torch.bfloat16, 2e-2)],
+                         ids=["f32", "bf16"])
+@pytest.mark.parametrize("name", sorted(CARD_DECODE_CASES))
+def test_decode_split_kernel_matches_plain_on_card(cuda, name, dtype, tol):
+    args, window = _card_decode_inputs(CARD_DECODE_CASES, name, dtype, cuda)
+    _decode_on_card(args, window, dtype, tol)
+
+
+# contexts over 8 x 64 keys: every CTA of a cluster walks several tiles
+# through the two-stage ring, at G 4, hd 128 and at the largest shape, G
+# 32, hd 256
+LONG_DECODE_CASES = {
+    "long-g4": (4, 32, 8, 128, 16, 64, [900, 1023, 0, 513], 0, ((1, 40),),
+                False),
+    "long-g4-window": (4, 32, 8, 128, 16, 64, [900, 1023, 0, 513], 700,
+                       ((1, 40),), False),
+    "long-g32-hd256": (3, 32, 1, 256, 16, 64, [1000, 0, 700], 0, ((0, 5),),
+                       False),
+}
+
+
+@pytest.mark.parametrize("name,stages", [("long-g4", 2),
+                                         ("long-g4-window", 2),
+                                         ("long-g32-hd256", 2)])
+def test_decode_split_walks_several_tiles_on_card(cuda, name, stages):
+    B, H, K, hd, bt, nb = LONG_DECODE_CASES[name][:6]
+    geo = ops.paged_attention_split_geometry(H, K, hd, bt, nb)
+    assert (geo["split"], geo["stages"]) == (8, stages)
+    assert geo["clusters"] > 0
+    args, window = _card_decode_inputs(LONG_DECODE_CASES, name,
+                                       torch.bfloat16, cuda)
+    _decode_on_card(args, window, torch.bfloat16, 2e-2)
+
+
+def test_decode_split_launch_never_syncs_on_card(cuda):
+    """The launch is sized from the table width alone: under sync debug
+    mode "error" a decode call (after a first call, which builds the
+    library) must not synchronise, so the host never reads seq_lens."""
+    args, window = _card_decode_inputs(CARD_DECODE_CASES, "g8-window",
+                                       torch.bfloat16, cuda)
+    ops.paged_attention(*args, window=window)
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        got = ops.paged_attention(*args, window=window)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    torch.cuda.synchronize()
+    assert bool(torch.isfinite(got).all())
+
+
+def _decode_bf16_weights(q, kp, vp, btab, lens, kn, vn):
+    """``ref.paged_attention`` (no window) with its softmax weights
+    rounded to bf16 before P.V: what the f32-weights check must refuse."""
+    B, H, hd = q.shape
+    _, bt, K, _ = kp.shape
+    nb, G = btab.shape[1], H // K
+    pages = btab.long().clamp_min(0)
+    kg = kp[pages].reshape(B, nb * bt, K, hd).float()
+    vg = vp[pages].reshape(B, nb * bt, K, hd).float()
+    live = torch.arange(nb * bt, device=q.device)[None] < lens.long()[:, None]
+    qg = q.reshape(B, K, G, hd).float()
+    s = torch.einsum("bkgd,btkd->bkgt", qg, kg) / math.sqrt(hd)
+    s = s.masked_fill(~live[:, None, None], -1e30)
+    s_new = torch.einsum("bkgd,bkd->bkg", qg, kn.float()) / math.sqrt(hd)
+    w = torch.softmax(torch.cat([s, s_new[..., None]], -1), -1)
+    w = w.to(torch.bfloat16).float()
+    out = torch.einsum("bkgt,btkd->bkgd", w[..., :-1], vg) \
+        + w[..., -1:] * vn[:, :, None].float()
+    return out.reshape(B, H, hd).to(q.dtype)
+
+
+@pytest.mark.parametrize("name", ["hd120", "g32", "new-slot-neg-inside"])
+def test_decode_split_keeps_f32_weights_on_card(cuda, name):
+    """bf16 on the split-KV kernel against the plain version, whose
+    weights are f32: no element is off by more than 2^-8 of the largest
+    |plain output| and under 1% of the elements differ at all (the f32
+    weights as bf16 hi + lo put it at ~0.1-0.2%).  Weights rounded to
+    bf16 change far more of them."""
+    args, window = _card_decode_inputs(CARD_DECODE_CASES, name,
+                                       torch.bfloat16, cuda, seed=13)
+    assert not window
+    got = ops.paged_attention(*args)
+    exp = ref.paged_attention(*args)
+    torch.cuda.synchronize()
+    top = float(exp.float().abs().max())
+    assert float((got.float() - exp.float()).abs().max()) <= top * 2 ** -8
+    share = float((got != exp).float().mean())
+    assert share < 0.01
+    rounded = _decode_bf16_weights(*args)
+    assert float((rounded != exp).float().mean()) >= 0.05
 
 
 # the card's prefill cases: name -> (B, C, H, K, hd, bt, nb, ctx, window,
