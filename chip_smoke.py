@@ -16,7 +16,9 @@ Phases (each prints its own lines and wall time; any failure raises):
                 paged_attention_split.cu (split-KV over a thread-block
                 cluster), paged_prefill_attention_mma.cu,
                 flash_attention_mma.cu and moe_gmm_wgmma.cu, and the f32
-                ones), one nvcc process per source (kernels/build.py),
+                ones; ssd_scan as ssd_scan_mma.cu, the tensor-core kernel
+                of every call, and ssd_scan.cu, the CUDA-core kernel it
+                replaced), one nvcc process per source (kernels/build.py),
                 each kernel's ptxas registers and spills, each source's
                 nvcc seconds;
   3. kernels  — each kernel against its plain PyTorch version: the
@@ -43,7 +45,15 @@ Phases (each prints its own lines and wall time; any failure raises):
                 rmsnorm at D in {64, 1536, 3584, 5120, 7168}, N in
                 {1, 8, 1200}; ssd_scan (y and final state) at zamba2's
                 heads (h 112, hd 64, S 64) with L a multiple of 128, L
-                ragged, one chunk and several, plus odd small shapes.
+                ragged, one chunk and several, plus odd small shapes,
+                chunk 1, hd and S not multiples of 8 (hd 130: three
+                slabs) and a decay under which exp(acs) underflows, each
+                on the tensor-core kernel (LAUNCHES["ssd_scan_mma"] one
+                up) with the CUDA-core kernel of ssd_scan.cu, called
+                through the library, held to the same tolerance beside
+                it, and each printing its launch geometry as
+                ops.ssd_scan_mma_geometry computes it and as the card
+                reports it (CTAs an SM holds, registers, spills).
                 Tolerance: the attention kernels |got - plain| <= tol, the
                 others |got - plain| <= tol + tol * |plain|, with tol =
                 2e-2 in bf16 and 1e-4 in f32 (TF32 off); ssd_scan 1e-3 in
@@ -99,7 +109,10 @@ Phases (each prints its own lines and wall time; any failure raises):
                 flash_attention L per group call, rmsnorm 2L + 1 per model
                 call, moe_gmm 3L and rao_scatter_add L per model call;
                 zamba2: ssd_scan 81 and flash_attention 13 per group call,
-                rmsnorm 189 per model call, no paged kernel; every bf16
+                rmsnorm 189 per model call, no paged kernel, every
+                ssd_scan call on the tensor-core kernel
+                (LAUNCHES["ssd_scan_mma"] equal to LAUNCHES["ssd_scan"],
+                0 on the other paths); every bf16
                 flash_attention launch on the tensor-core kernel
                 (LAUNCHES["flash_attention_mma"] equal to
                 LAUNCHES["flash_attention"]) and every bf16 moe_gmm launch
@@ -110,8 +123,16 @@ Phases (each prints its own lines and wall time; any failure raises):
                 that computes the same function (never called by the port:
                 scaled_dot_product_attention, torch.bmm, index_add_,
                 F.rms_norm; none for ssd_scan) and its bound at 3.35 TB/s,
-                989 TFLOP/s bf16 (matmul work) and 67 TFLOP/s f32
-                (elementwise and SSD scan work); moe_gmm at four calls
+                989 TFLOP/s bf16 (matmul work and the SSD scan's bf16
+                passes), 495 TFLOP/s TF32 (its TF32 passes; three passes
+                a product) and 67 TFLOP/s f32 (elementwise work);
+                ssd_scan at the zamba2 path's
+                smallest and largest group call, the tensor-core kernel
+                beside the CUDA-core kernel called through the library
+                and the plain version, after both flushes, with the
+                launch geometry and the f32-FMA bound (all its work at 67
+                TFLOP/s); rao_scatter_add at the granite chunked path's
+                decode tick and largest tick; moe_gmm at four calls
                 of the granite chunked path (the gate and the down
                 projection, each at decode and in the tick with the most
                 work) and two of the capacity one-shot path (its largest
@@ -163,6 +184,7 @@ from repro_torch.runtime.server import (  # noqa: E402
 HBM_BYTES_PER_S = H100_HBM_STREAM_GBs * 1e9   # H100 SXM, published
 BF16_FLOPS = 989e12              # H100 SXM dense bf16 tensor peak
 F32_FLOPS = 67e12                # H100 SXM f32 peak outside the tensor cores
+TF32_FLOPS = 495e12              # H100 SXM dense TF32 tensor peak
 KERNELS = {
     "paged_attention": dict(
         source="src/repro_torch/kernels/csrc/paged_attention_split.cu",
@@ -188,7 +210,8 @@ KERNELS = {
         source="src/repro_torch/kernels/csrc/rmsnorm.cu",
         replaces="src/repro/kernels/rmsnorm.py:29"),
     "ssd_scan": dict(
-        source="src/repro_torch/kernels/csrc/ssd_scan.cu",
+        source="src/repro_torch/kernels/csrc/ssd_scan_mma.cu",
+        cuda_core_source="src/repro_torch/kernels/csrc/ssd_scan.cu",
         replaces="src/repro/kernels/ssd_scan.py:75"),
 }
 ATTENTION = ("paged_attention", "paged_prefill_attention")
@@ -521,13 +544,56 @@ def close_normwise(got, exp, tol):
         float((g - e).abs().max()) <= tol * float(e.abs().max())
 
 
+def cuda_core_ssd(args, kw, y, st):
+    """ssd_scan.cu's CUDA-core kernel on the wrapper's arguments, into y
+    and st, launched through the library (no count): the kernel the
+    tensor-core one replaced on the main path, as the before of phases 3
+    and 6.  Returns the CUDA error."""
+    x, Bm, Cm, dt, A = args
+    B, L, h, hd = x.shape
+    return build.load().ssd_scan_launch(
+        ops._DTYPES[x.dtype], x.data_ptr(), Bm.data_ptr(), Cm.data_ptr(),
+        dt.data_ptr(), A.data_ptr(), y.data_ptr(), st.data_ptr(), B, L, h,
+        hd, Bm.shape[-1], int(kw.get("chunk", 128)),
+        ops._stream_ptr(x.device))
+
+
+def ssd_geometry_line(x, S, chunk):
+    """The tensor-core ssd_scan launch at x's shapes: what
+    ops.ssd_scan_mma_geometry computes and what the card reports (CTAs an
+    SM holds, registers, spills); raises if the two disagree on a size or
+    a grid, or the card holds fewer CTAs than computed."""
+    B, L, h, hd = x.shape
+    geo = ops.ssd_scan_mma_geometry(B, L, h, hd, S, chunk, x.dtype)
+    card = ops.ssd_scan_mma_card_geometry(B, L, h, hd, S, chunk, x.dtype)
+    same = (card["scratch_floats"], card["smem"], card["prep_smem"],
+            (card["grid_x"], card["grid_y"]), card["prep_grid_x"]) == \
+        (geo["scratch_floats"], geo["smem"], geo["prep_smem"], geo["grid"],
+         geo["prep_grid"][0])
+    if not same or card["ctas_per_sm"] < geo["ctas_per_sm"]:
+        raise AssertionError(f"ssd_scan geometry: computed {geo}, card "
+                             f"{card}")
+    return (f"grid {geo['grid']} x {geo['threads']} threads after C.B^T "
+            f"grid {geo['prep_grid']}; smem {geo['smem']} B (C.B^T "
+            f"{geo['prep_smem']} B), scratch {4 * geo['scratch_floats']} B;"
+            f" CTAs per SM {card['ctas_per_sm']} (computed at least "
+            f"{geo['ctas_per_sm']}), waves {geo['waves']}; "
+            f"{card['registers']} registers, {card['local_bytes']} bytes "
+            f"of spill")
+
+
 def check_ssd_kernel(rng, errs):
     """ssd_scan's y and final state against the plain chunk math: zamba2's
     heads (h 112, hd 64, S 64, chunk 128) with L a multiple of 128 (two
     chunks), L ragged (209: a partial last chunk), one chunk; then small
-    odd shapes (hd and S not multiples of 16, chunk not a power of two).
+    odd shapes (hd and S not multiples of 16, chunk not a power of two),
+    chunk 1, hd and S not multiples of 8 (hd 130: three slabs of hd, the
+    last 2 wide), and a decay so strong that exp(acs) underflows to 0.
     dt = softplus(randn), as the model's projection gives it, or
-    |randn| / 10 as the JAX suite draws it."""
+    |randn| / 10 as the JAX suite draws it; "strong": A = -60 with dt =
+    softplus.  Every case takes the tensor-core kernel
+    (LAUNCHES["ssd_scan_mma"] one up); the CUDA-core kernel, called
+    through the library, is held to the same tolerance beside it."""
     def rnd(shape, scale=1.0):
         return torch.from_numpy(
             (rng.randn(*shape) * scale).astype(np.float32)).to(DEV)
@@ -535,33 +601,49 @@ def check_ssd_kernel(rng, errs):
              (4, 209, 112, 64, 64, 128, "softplus"),
              (2, 128, 112, 64, 64, 128, "small"),
              (1, 77, 3, 32, 16, 64, "small"),
-             (2, 300, 2, 40, 24, 100, "softplus")]
+             (2, 300, 2, 40, 24, 100, "softplus"),
+             (2, 37, 3, 24, 16, 1, "softplus"),
+             (2, 150, 5, 20, 13, 128, "small"),
+             (1, 200, 2, 130, 70, 48, "softplus"),
+             (2, 256, 8, 64, 64, 128, "strong")]
     for B, L, h, hd, S, chunk, dts in cases:
         Bm, Cm = rnd((B, L, S)), rnd((B, L, S))
         raw = rnd((B, L, h))
-        dt = torch.nn.functional.softplus(raw) if dts == "softplus" \
-            else raw.abs() * 0.1
+        dt = raw.abs() * 0.1 if dts == "small" \
+            else torch.nn.functional.softplus(raw)
         A = -(rnd((h,)).abs() + 0.2) if dts == "small" \
+            else torch.full((h,), -60.0, device=DEV) if dts == "strong" \
             else -torch.exp(rnd((h,), 0.5))
         x32 = rnd((B, L, h, hd))
         for dtype, tol in ((torch.float32, 1e-3), (torch.bfloat16, 2e-2)):
             x = x32.to(dtype)
-            before = ops.LAUNCHES["ssd_scan"]
+            before = dict(ops.LAUNCHES)
             y, st = ops.ssd_scan(x, Bm, Cm, dt, A, chunk=chunk)
             ey, est = ref.ssd_scan(x, Bm, Cm, dt, A, chunk=chunk)
+            oy, ost = torch.empty_like(y), torch.empty_like(st)
+            if cuda_core_ssd((x, Bm, Cm, dt, A), dict(chunk=chunk), oy, ost):
+                raise AssertionError("the CUDA-core ssd_scan kernel did not "
+                                     "launch")
             torch.cuda.synchronize()
             e = max(max_err(y, ey), max_err(st, est))
+            old = max(max_err(oy, ey), max_err(ost, est))
             check = close if dtype == torch.float32 else close_normwise
             ok = check(y, ey, tol) and check(st, est, tol) and \
-                ops.LAUNCHES["ssd_scan"] == before + 1
+                check(oy, ey, tol) and check(ost, est, tol) and \
+                all(ops.LAUNCHES[k] == before[k] + 1
+                    for k in ("ssd_scan", "ssd_scan_mma"))
             print(f"[kernels] ssd_scan x {str(dtype)[6:]} B {B} L {L} h {h} "
                   f"hd {hd} S {S} chunk {chunk} dt {dts}: max_abs_err "
-                  f"{e:.3g} (y max {float(ey.abs().max()):.3g}, state max "
+                  f"{e:.3g}, CUDA-core kernel {old:.3g} (y max "
+                  f"{float(ey.abs().max()):.3g}, state max "
                   f"{float(est.abs().max()):.3g}; tol {tol} "
-                  f"{'abs + rel' if dtype == torch.float32 else 'normwise'})")
+                  f"{'abs + rel' if dtype == torch.float32 else 'normwise'})"
+                  f"; {ssd_geometry_line(x, S, chunk)}")
             if not ok:
-                raise AssertionError(f"ssd_scan disagrees: {e}")
+                raise AssertionError(f"ssd_scan disagrees: {e} (CUDA-core "
+                                     f"kernel {old})")
             errs["ssd_scan"].append(e)
+            errs["ssd_scan_cuda_core"].append(old)
 
 
 def check_oneshot_kernels(rng, errs):
@@ -739,7 +821,7 @@ TINY = dict(n_layers=2, d_model=32, n_heads=2, n_kv_heads=2, head_dim=16,
             d_ff=64, vocab=128, param_dtype="float32", cache_dtype="float32")
 CHUNKED_KERNELS = ("paged_prefill_attention", "paged_attention", "rmsnorm")
 ONESHOT_KERNELS = ("flash_attention", "paged_attention", "rmsnorm")
-HYBRID_KERNELS = ("ssd_scan", "flash_attention", "rmsnorm")
+HYBRID_KERNELS = ("ssd_scan", "ssd_scan_mma", "flash_attention", "rmsnorm")
 # counts of the kernels that take bf16 only
 BF16_ONLY = ("paged_attention_split", "paged_prefill_attention_mma",
              "flash_attention_mma", "moe_gmm_wgmma")
@@ -887,11 +969,11 @@ def expected_launches(cfg, st, groups):
            "flash_attention": L * groups, "flash_attention_mma": 0,
            "rmsnorm": norms_per_call(cfg) * calls,
            "moe_gmm": 0, "moe_gmm_wgmma": 0, "rao_scatter_add": 0,
-           "ssd_scan": 0}
-    if cfg.family == "hybrid":
+           "ssd_scan": 0, "ssd_scan_mma": 0}
+    if cfg.family == "hybrid":   # every ssd_scan call on the tensor cores
         exp["paged_attention"] = 0
         exp["flash_attention"] = transformer.hybrid_layout(cfg)[0] * groups
-        exp["ssd_scan"] = L * groups
+        exp["ssd_scan"] = exp["ssd_scan_mma"] = L * groups
     if cfg.family == "moe":
         exp["moe_gmm"] = 3 * L * calls
         exp["rao_scatter_add"] = L * calls
@@ -1388,8 +1470,9 @@ def measure_gmm(recs, errs, flush, path, ticks=("decode", "max")):
 def phase_measure_moe(recs, errs):
     """Time moe_gmm (``measure_gmm``) and rao_scatter_add on the granite
     chunked path's own inputs (layer 0's call in a decode tick and in the
-    tick with the most work; the record keeps the gate's at the latter,
-    and moe_gmm's other calls under ``shapes``), cold L2."""
+    tick with the most work; the record keeps the gate's and the
+    scatter's at the latter, and both kernels' other calls under
+    ``shapes``), cold L2."""
     flush = torch.empty(256 << 20, dtype=torch.uint8, device=DEV)
     shapes = measure_gmm(recs, errs, flush, "granite chunked")
     gate_max = next(v for k, v in shapes.items()
@@ -1398,6 +1481,7 @@ def phase_measure_moe(recs, errs):
         {k: v for k, v in gate_max.items() if "clean" not in k},
         shapes=shapes)}
     sized = sorted(recs["rao_scatter_add"], key=lambda c: rao_work(*c[0])[1])
+    rao_rows = {}
     for label, (args, _) in (("decode", sized[0]), ("max", sized[-1])):
         table, idx, vals = args
         nbytes, flops = rao_work(table, idx, vals)
@@ -1429,11 +1513,11 @@ def phase_measure_moe(recs, errs):
               f"max_abs_err {lib_err:.3g}); bound {bound:.4f} ms ({nbytes} "
               f"bytes -> {t_bytes:.4f} ms, {flops} ops -> {t_ops:.4f} ms); "
               f"max_abs_err {err:.3g}")
-        if label == "max":
-            out["rao_scatter_add"] = dict(
-                ms=k_ms, plain_ms=p_ms, library_ms=l_ms,
-                bound_ms=float(bound),
-                bound_by="bytes" if t_bytes >= t_ops else "operations")
+        rao_rows[f"granite chunked: {label} tick M {idx.shape[0]}"] = dict(
+            ms=k_ms, plain_ms=p_ms, library_ms=l_ms, bound_ms=float(bound),
+            bound_by="bytes" if t_bytes >= t_ops else "operations")
+    top = next(v for k, v in rao_rows.items() if " max tick" in k)
+    out["rao_scatter_add"] = dict(top, shapes=rao_rows)
     return out
 
 
@@ -1563,7 +1647,8 @@ def ssd_work(x, Bm, A, chunk):
     not depend on the head; then per (row, head) the decay and dt of each
     pair (3), the intra-chunk product (2 hd per pair), the inter-chunk
     product and its scale (Lc hd (2 S + 1)), the state's weights, update
-    and decay (Lc hd + 2 Lc S hd + S hd); an exp counts as one."""
+    and decay (Lc hd + 2 Lc S hd + S hd); an exp counts as one.  All of it
+    at the f32 rate of the CUDA cores is the "f32-FMA bound"."""
     B, L, h, hd = x.shape
     S = Bm.shape[-1]
     nbytes = x.numel() * x.element_size() \
@@ -1579,44 +1664,106 @@ def ssd_work(x, Bm, A, chunk):
     return nbytes, n_ops
 
 
+def ssd_tc_work(x, Bm, chunk):
+    """The same call's work as the tensor-core kernel does it: (TF32
+    tensor-core flops, bf16 tensor-core flops, f32 operations).  The
+    products of ssd_work (C.B^T once per (row, chunk) over its causal
+    pairs, M.x, C.st^T, (B^T w).x), 2 flops a multiply-add, each run as
+    three passes: TF32 for two f32 operands (C.B^T, C.st^T, and every
+    product with f32 x), bf16 for the products with a bf16 x as an
+    operand (M.x and (B^T w).x); C.st^T only after a row's first chunk,
+    where the state is not 0.  CUDA cores: the decay and dt of each pair
+    (3), the inter term's scale, the state's decay and weights."""
+    B, L, h, hd = x.shape
+    S = Bm.shape[-1]
+    tf32, bf16, f32 = 0, 0, 0
+    for t0 in range(0, L, chunk):
+        Lc = min(chunk, L - t0)
+        pairs = Lc * (Lc + 1) // 2
+        carry = t0 > 0
+        x_flops = 2 * 3 * B * h * (pairs * hd + Lc * S * hd)
+        tf32 += 2 * 3 * (B * S * pairs + B * h * carry * Lc * S * hd)
+        if x.dtype == torch.bfloat16:
+            bf16 += x_flops
+        else:
+            tf32 += x_flops
+        f32 += B * h * (3 * pairs + carry * (Lc * hd + S * hd) + Lc * hd)
+    return tf32, bf16, f32
+
+
 @phase("measure")
 def phase_measure_ssd(recs, errs):
     """Time ssd_scan on the zamba2 path's own inputs (layer 0's call in
-    its smallest and its largest group call), cold L2, beside the plain
-    version; no single PyTorch call computes an SSD scan (library: none)."""
+    its smallest and its largest group call), after a dirty and after a
+    clean L2 flush: the wrapper (the tensor-core kernel, two launches)
+    beside the CUDA-core kernel of ssd_scan.cu called through the library
+    and the plain version; no single PyTorch call computes an SSD scan
+    (library: none).  Prints each call's launch geometry, the kernel's
+    registers and spills; the record keeps the largest call and, under
+    ``shapes``, both."""
     flush = torch.empty(256 << 20, dtype=torch.uint8, device=DEV)
     sized = sorted(recs["ssd_scan"], key=lambda c: c[0][0].shape[1])
-    out = {}
+    rows = {}
     for label, (args, kw) in (("smallest", sized[0]), ("max", sized[-1])):
         x, Bm, Cm, dt, A = args
-        nbytes, n_ops = ssd_work(x, Bm, A, kw["chunk"])
+        chunk = kw["chunk"]
+        nbytes, n_ops = ssd_work(x, Bm, A, chunk)
+        tf32_flops, bf16_flops, f32_ops = ssd_tc_work(x, Bm, chunk)
         run = partial(ops.ssd_scan, *args, **kw)
         plain = partial(ref.ssd_scan, *args, **kw)
+        oy = torch.empty(x.shape, dtype=torch.float32, device=DEV)
+        ost = torch.empty(x.shape[0], x.shape[2], x.shape[3], Bm.shape[-1],
+                          dtype=torch.float32, device=DEV)
+        old = partial(cuda_core_ssd, args, kw, oy, ost)
+        before = ops.LAUNCHES["ssd_scan_mma"]
         y, st = run()
+        if ops.LAUNCHES["ssd_scan_mma"] != before + 1:
+            raise AssertionError("ssd_scan did not take the tensor-core "
+                                 "kernel")
+        if old():
+            raise AssertionError("the CUDA-core ssd_scan kernel did not "
+                                 "launch")
         ey, est = plain()
         torch.cuda.synchronize()
         err = max(max_err(y, ey), max_err(st, est))
-        if not (close(y, ey, 1e-3) and close(st, est, 1e-3)):
+        old_err = max(max_err(oy, ey), max_err(ost, est))
+        if not (close(y, ey, 1e-3) and close(st, est, 1e-3)
+                and close(oy, ey, 1e-3) and close(ost, est, 1e-3)):
             raise AssertionError(f"ssd_scan disagrees on main-path inputs: "
-                                 f"{err}")
+                                 f"{err} (CUDA-core kernel {old_err})")
         errs["ssd_scan"].append(err)
-        k_ms = time_ms(run, 20, flush)
+        errs["ssd_scan_cuda_core"].append(old_err)
+        k_ms, o_ms = (time_ms(f, 20, flush) for f in (run, old))
+        k_cl, o_cl = (time_ms(f, 20, flush, clean=True) for f in (run, old))
         p_ms = time_ms(plain, 5, flush)
         t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
-        t_ops = n_ops / F32_FLOPS * 1e3
+        t_ops = max(tf32_flops / TF32_FLOPS + bf16_flops / BF16_FLOPS,
+                    f32_ops / F32_FLOPS) * 1e3
+        t_fma = n_ops / F32_FLOPS * 1e3
         bound = max(t_bytes, t_ops)
         print(f"[measure] ssd_scan ({label} group call) on main-path inputs "
               f"x {tuple(x.shape)} {str(x.dtype)[6:]} B/C "
-              f"{tuple(Bm.shape)} chunk {kw['chunk']}: kernel {k_ms:.4f} ms, "
-              f"plain {p_ms:.4f} ms, library: none; bound {bound:.4f} ms "
-              f"({nbytes} bytes -> {t_bytes:.4f} ms, {n_ops} f32 ops -> "
-              f"{t_ops:.4f} ms); max_abs_err {err:.3g}")
-        if label == "max":
-            out["ssd_scan"] = dict(ms=k_ms, plain_ms=p_ms, library_ms=None,
-                                   bound_ms=float(bound),
-                                   bound_by="bytes" if t_bytes >= t_ops
-                                   else "operations")
-    return out
+              f"{tuple(Bm.shape)} chunk {chunk}: tensor-core kernel "
+              f"{k_ms:.4f} ms, CUDA-core kernel {o_ms:.4f} ms, plain "
+              f"{p_ms:.4f} ms, library: none; after a clean flush "
+              f"tensor-core {k_cl:.4f}, CUDA-core {o_cl:.4f} ms; bound "
+              f"{bound:.4f} ms ({nbytes} bytes -> {t_bytes:.4f} ms, "
+              f"{tf32_flops} TF32-pass flops at 495 TFLOP/s, {bf16_flops} "
+              f"bf16-pass flops at 989 and {f32_ops} f32 ops -> "
+              f"{t_ops:.4f} ms); f32-FMA bound {t_fma:.4f} ms "
+              f"({n_ops} f32 ops); max_abs_err {err:.3g} (CUDA-core "
+              f"{old_err:.3g})")
+        print(f"[measure] ssd_scan ({label} group call) geometry: "
+              f"{ssd_geometry_line(x, Bm.shape[-1], chunk)}")
+        rows[f"zamba2 dense: {label} {tuple(x.shape)}"] = dict(
+            ms=k_ms, cuda_core_ms=o_ms, plain_ms=p_ms, library_ms=None,
+            bound_ms=float(bound),
+            bound_by="bytes" if t_bytes >= t_ops else "operations",
+            f32_fma_bound_ms=float(t_fma), clean_ms=k_cl,
+            cuda_core_clean_ms=o_cl)
+    top = next(v for k, v in rows.items() if k.startswith("zamba2 dense: max"))
+    return {"ssd_scan": dict({k: v for k, v in top.items()
+                              if "clean" not in k}, shapes=rows)}
 
 
 def _device_us(evt):
@@ -1633,7 +1780,7 @@ PROFILE_PARTS = (
     ("flash_attention", ("flash_attention",)),
     ("rmsnorm", ("rmsnorm",)),
     ("moe_gmm", ("moe_gmm",)),
-    ("ssd_scan", ("ssd_scan",)),
+    ("ssd_scan", ("ssd_scan", "ssd_cb")),
     ("rao_scatter_add", ("scatter_add_kernel", "widen_kernel",
                          "narrow_kernel")),
     ("cuBLAS gemm", ("gemm", "xmma", "cutlass", "nvjet")),
@@ -1709,7 +1856,8 @@ def main(argv=None):
     phase_build()
     errs = {name: [] for name in (*KERNELS, "moe_gmm_wmma",
                                   "paged_prefill_attention_cuda_core",
-                                  "paged_attention_unsplit")}
+                                  "paged_attention_unsplit",
+                                  "ssd_scan_cuda_core")}
     phase_kernels(errs)
     if args.quick:
         return 0
@@ -1777,6 +1925,11 @@ def main(argv=None):
     gmm["launches_wgmma"] = sum(n["moe_gmm_wgmma"]
                                 for n in by_path.values())
     gmm["wmma_max_abs_err"] = max(errs["moe_gmm_wmma"])
+    # every ssd_scan call of the main path is the tensor-core kernel's
+    # (phase 5); ssd_scan.cu's CUDA-core kernel is timed beside it
+    ssd = next(k for k in record["kernels"] if k["name"] == "ssd_scan")
+    ssd["launches_mma"] = sum(n["ssd_scan_mma"] for n in by_path.values())
+    ssd["cuda_core_max_abs_err"] = max(errs["ssd_scan_cuda_core"])
     print(f"[total] wall {time.perf_counter() - t_all:.1f} s")
     print(json.dumps(record))
     print(json.dumps({"ok": True, "device": {

@@ -8,7 +8,8 @@ Every kernel source (``csrc/paged_attention.cu`` (f32),
 shapes TMA does not take), ``csrc/moe_gmm_wgmma.cu`` (bf16, TMA and
 wgmma), ``csrc/rao_scatter.cu``, ``csrc/flash_attention.cu`` (f32),
 ``csrc/flash_attention_mma.cu`` (bf16, tensor cores), ``csrc/rmsnorm.cu``,
-``csrc/ssd_scan.cu``) compiles in its own ``nvcc``
+``csrc/ssd_scan.cu`` (CUDA cores), ``csrc/ssd_scan_mma.cu`` (tensor
+cores)) compiles in its own ``nvcc``
 process, all started together, and one more ``nvcc`` call links the objects into a
 single shared library with a plain C interface, loaded with ``ctypes`` —
 no PyTorch headers, so the build takes seconds, not minutes.  The library
@@ -36,7 +37,8 @@ SOURCES = ("paged_attention.cu", "paged_attention_split.cu",
            "paged_prefill_attention.cu",
            "paged_prefill_attention_mma.cu", "moe_gmm.cu",
            "moe_gmm_wgmma.cu", "rao_scatter.cu", "flash_attention.cu",
-           "flash_attention_mma.cu", "rmsnorm.cu", "ssd_scan.cu")
+           "flash_attention_mma.cu", "rmsnorm.cu", "ssd_scan.cu",
+           "ssd_scan_mma.cu")
 HEADERS = ("paged_common.cuh",)
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-Xcompiler", "-fPIC", "-lineinfo", "-Xptxas", "-v")
@@ -157,6 +159,15 @@ def _bind(lib: ctypes.CDLL) -> ctypes.CDLL:
                                     i, i, i, i, i, i, p]
     #                  dtype x Bm Cm dt A y state B L h hd S chunk stream
     lib.ssd_scan_launch.restype = i
+    lib.ssd_scan_mma_launch.argtypes = [i, p, p, p, p, p, p, p, p,
+                                        ctypes.c_longlong,
+                                        i, i, i, i, i, i, p]
+    #  dtype x Bm Cm dt A y state scratch scratch_len B L h hd S chunk stream
+    lib.ssd_scan_mma_launch.restype = i
+    lib.ssd_scan_mma_geometry.argtypes = [i, i, i, i, i, i, i,
+                                          ctypes.POINTER(ctypes.c_longlong)]
+    #                          dtype B L h hd S chunk geometry[9]
+    lib.ssd_scan_mma_geometry.restype = i
     return lib
 
 

@@ -18,7 +18,9 @@ count), so a run can show that its main path went through the kernels;
 (``FLASH_KERNELS``), ``LAUNCHES["paged_prefill_attention_mma"]`` those of
 ``paged_prefill_attention`` (``PAGED_PREFILL_KERNELS``), and
 ``LAUNCHES["moe_gmm_wgmma"]`` the launches of ``moe_gmm`` that take the
-TMA / wgmma kernel (``moe_gmm_kernel``); ``reset_launches()`` zeroes it.
+TMA / wgmma kernel (``moe_gmm_kernel``), and ``LAUNCHES["ssd_scan_mma"]``
+the calls of ``ssd_scan`` on the tensor-core kernel (all of them: two
+launches each); ``reset_launches()`` zeroes it.
 """
 from __future__ import annotations
 
@@ -37,12 +39,19 @@ LAUNCHES: Dict[str, int] = {"paged_attention": 0,
                             "moe_gmm": 0, "moe_gmm_wgmma": 0,
                             "rao_scatter_add": 0,
                             "flash_attention": 0, "flash_attention_mma": 0,
-                            "rmsnorm": 0, "ssd_scan": 0}
+                            "rmsnorm": 0, "ssd_scan": 0, "ssd_scan_mma": 0}
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 MAX_HEAD_DIM = 256
 MAX_GROUP = 32          # query heads per kv head: one CTA's softmax rows
 MAX_SSD_CHUNK = 128     # ssd_scan: one warp's cumsum, 4 steps a lane
 SMEM_LIMIT = 232448     # opt-in shared memory of one H100 CTA (227 KB)
+# one H100 SXM: 132 SMs, each 228 KB of shared memory (1 KB of it kept
+# per resident CTA), 2,048 threads and 65,536 registers
+H100_SMS, SM_SMEM, SM_SMEM_RESERVED = 132, 233472, 1024
+SM_THREADS, SM_REGS = 2048, 65536
+# the tensor-core ssd_scan (csrc/ssd_scan_mma.cu): 4-warp CTAs of at most
+# 128 registers a thread, 64 columns of hd each, S staged 64 at a time
+SSD_THREADS, SSD_MAX_REGS, SSD_SLAB, SSD_S_TILE = 128, 128, 64, 64
 # paged_attention's kernel per dtype: bf16 split-KV over a thread-block
 # cluster (f32 softmax weights), f32 one CTA per (slot, kv head)
 PAGED_DECODE_KERNELS = {torch.bfloat16: "paged_attention_split_launch",
@@ -419,22 +428,50 @@ def rmsnorm(x, w, eps: float = 1e-5):
 
 
 def _ssd_smem_bytes(chunk: int, hd: int, S: int) -> int:
-    """Shared memory of one ``ssd_scan`` CTA (csrc/ssd_scan.cu): the
-    state, C, B^T, x and the masked C.B^T of one chunk, dt and its
-    cumsum, in f32 (rows padded by one word against bank conflicts)."""
+    """Shared memory of one CTA of the CUDA-core ``ssd_scan`` kernel
+    (csrc/ssd_scan.cu): the state, C, B^T, x and the masked C.B^T of one
+    chunk, dt and its cumsum, in f32 (rows padded by one word against bank
+    conflicts).  The wrapper accepts the shapes whose CTA fits, as it did
+    when that kernel took its calls."""
     return 4 * (S * hd + chunk * (S + 1) + S * (chunk + 1) + chunk * hd
                 + chunk * (chunk + 1) + 2 * chunk)
 
 
-def ssd_scan(x, Bm, Cm, dt, A, *, chunk: int = 128):
-    """Chunked Mamba2/SSD scan: x (B, L, h, hd) float32 or bfloat16; Bm,
-    Cm (B, L, S), dt (B, L, h) and A (h,) float32.  Any L (a ragged last
-    chunk counts as dt = 0 past L).  Returns (y (B, L, h, hd) f32, final
-    state (B, h, hd, S) f32).  See ``kernels.ref.ssd_scan``."""
-    if x.device.type == "cpu":
-        return ref.ssd_scan(x, Bm, Cm, dt, A, chunk=chunk)
-    if x.device.type != "cuda":
-        raise ValueError(f"ssd_scan: no kernel for {x.device}")
+def ssd_scan_mma_geometry(B, L, h, hd, S, chunk, dtype) -> Dict[str, object]:
+    """The launches of the tensor-core ``ssd_scan`` kernel
+    (csrc/ssd_scan_mma.cu) at these shapes, x in ``dtype``: ``prep_grid``
+    of the C.B^T launch (16-row tiles x chunks, B) and its shared memory
+    ``prep_smem``; ``grid`` of the scan, one CTA of ``threads`` per (head,
+    slab of 64 columns of hd) and row, its shared memory ``smem`` (x in
+    its own dtype, two chunks; a 64-column tile of the old state; five
+    f32 vectors of a chunk); the ``scratch_floats`` of C.B^T, C and B^T
+    fragments; ``ctas_per_sm``, the scan CTAs one SM holds at most by
+    shared memory, threads and the 128 registers its launch bounds allow
+    (the card may hold more if ptxas needs fewer); and ``waves`` of such
+    full SMs the grid takes on the 132 SMs of an H100 SXM."""
+    rt = -(-chunk // 16)
+    lp = 16 * rt
+    n_chunks = -(-L // chunk)
+    s_tiles = -(-S // SSD_S_TILE)
+    es = 2 if dtype == torch.bfloat16 else 4
+    hdp = 8 * -(-min(hd, SSD_SLAB) // 8)
+    ldx = hdp + 16 // es
+    smem = 2 * lp * ldx * es + 4 * (hdp * (SSD_S_TILE + 4) + 5 * lp)
+    frags = rt * (rt + 1) + rt * 8 * s_tiles + 4 * s_tiles * 2 * rt
+    slabs = -(-hd // SSD_SLAB)
+    ctas = min(SM_SMEM // (smem + SM_SMEM_RESERVED),
+               SM_THREADS // SSD_THREADS,
+               SM_REGS // (SSD_THREADS * SSD_MAX_REGS))
+    n_ctas = h * slabs * B
+    return dict(prep_grid=(rt * n_chunks, B), prep_smem=4 * (
+                    16 * (SSD_S_TILE + 4) * (1 + rt) + 16 * (lp + 4)),
+                grid=(h * slabs, B), threads=SSD_THREADS, smem=smem,
+                scratch_floats=B * n_chunks * frags * 128,
+                ctas_per_sm=ctas, waves=-(-n_ctas // (H100_SMS * ctas)))
+
+
+def _check_ssd(x, Bm, Cm, dt, A, chunk):
+    """``ssd_scan``'s checks of a card call; returns (B, L, h, hd, S)."""
     for name, t in (("Bm", Bm), ("Cm", Cm), ("dt", dt), ("A", A)):
         if t.device != x.device:
             raise ValueError(f"ssd_scan: {name} on {t.device}, x on "
@@ -466,15 +503,60 @@ def ssd_scan(x, Bm, Cm, dt, A, *, chunk: int = 128):
         raise ValueError(f"ssd_scan: chunk {chunk}, hd {hd}, S {S} need "
                          f"{_ssd_smem_bytes(chunk, hd, S)} bytes of shared "
                          f"memory (limit {SMEM_LIMIT})")
+    return B, L, h, hd, S
+
+
+def ssd_scan(x, Bm, Cm, dt, A, *, chunk: int = 128):
+    """Chunked Mamba2/SSD scan: x (B, L, h, hd) float32 or bfloat16; Bm,
+    Cm (B, L, S), dt (B, L, h) and A (h,) float32.  Any L (a ragged last
+    chunk counts as dt = 0 past L).  Returns (y (B, L, h, hd) f32, final
+    state (B, h, hd, S) f32).  See ``kernels.ref.ssd_scan``.
+
+    On the card every call, both x dtypes and every accepted shape, takes
+    the tensor-core kernel of ``csrc/ssd_scan_mma.cu`` in two launches:
+    C.B^T once per (row, chunk) into a scratch, then the scan
+    (``ssd_scan_mma_geometry``).  ``LAUNCHES["ssd_scan"]`` and
+    ``LAUNCHES["ssd_scan_mma"]`` count the call once.  The CUDA-core
+    kernel of ``csrc/ssd_scan.cu`` is in the library but no call here
+    reaches it."""
+    if x.device.type == "cpu":
+        return ref.ssd_scan(x, Bm, Cm, dt, A, chunk=chunk)
+    if x.device.type != "cuda":
+        raise ValueError(f"ssd_scan: no kernel for {x.device}")
+    B, L, h, hd, S = _check_ssd(x, Bm, Cm, dt, A, chunk)
     y = torch.empty((B, L, h, hd), dtype=torch.float32, device=x.device)
-    st = torch.zeros((B, h, hd, S), dtype=torch.float32, device=x.device)
     if 0 in (B, L, h):
-        return y, st
-    rc = build.load().ssd_scan_launch(
+        return y, torch.zeros((B, h, hd, S), dtype=torch.float32,
+                              device=x.device)
+    st = torch.empty((B, h, hd, S), dtype=torch.float32, device=x.device)
+    n = ssd_scan_mma_geometry(B, L, h, hd, S, chunk, x.dtype)[
+        "scratch_floats"]
+    scratch = torch.empty(n, dtype=torch.float32, device=x.device)
+    rc = build.load().ssd_scan_mma_launch(
         _DTYPES[x.dtype], x.data_ptr(), Bm.data_ptr(), Cm.data_ptr(),
         dt.data_ptr(), A.data_ptr(), y.data_ptr(), st.data_ptr(),
-        B, L, h, hd, S, int(chunk), _stream_ptr(x.device))
+        scratch.data_ptr(), n, B, L, h, hd, S, int(chunk),
+        _stream_ptr(x.device))
     if rc:
-        raise RuntimeError(f"ssd_scan kernel launch failed: CUDA error {rc}")
+        raise RuntimeError(f"ssd_scan kernel launch failed "
+                           f"(ssd_scan_mma_launch): CUDA error {rc}")
     LAUNCHES["ssd_scan"] += 1
+    LAUNCHES["ssd_scan_mma"] += 1
     return y, st
+
+
+def ssd_scan_mma_card_geometry(B, L, h, hd, S, chunk, dtype) \
+        -> Dict[str, int]:
+    """What the library and the card report for the tensor-core
+    ``ssd_scan`` launch at these shapes (x in ``dtype``): the sizes and
+    grids ``ssd_scan_mma_geometry`` computes, the scan CTAs an SM holds
+    (cudaOccupancyMaxActiveBlocksPerMultiprocessor), and the scan
+    kernel's registers a thread and local (spill) bytes."""
+    out = (ctypes.c_longlong * 9)()
+    rc = build.load().ssd_scan_mma_geometry(_DTYPES[dtype], B, L, h, hd, S,
+                                            chunk, out)
+    if rc:
+        raise RuntimeError(f"ssd_scan_mma_geometry failed: CUDA error {rc}")
+    return dict(zip(("scratch_floats", "smem", "prep_smem", "grid_x",
+                     "grid_y", "prep_grid_x", "ctas_per_sm", "registers",
+                     "local_bytes"), out))

@@ -160,6 +160,44 @@ def test_plain_ssd_scan_matches_pallas_and_oracle(B, L, h, hd, S, chunk):
         np.testing.assert_allclose(y.numpy(), np.asarray(pallas), **SCAN_TOL)
 
 
+# chip_smoke.py phase 3's odd shapes: chunk 1, hd and S not multiples of
+# 8 (hd 130: three 64-column slabs of the card kernel, the last 2 wide),
+# and a decay so strong that exp(acs) underflows to 0
+ODD_SCANS = [(2, 37, 3, 24, 16, 1, "normal"),
+             (2, 150, 5, 20, 13, 128, "normal"),
+             (1, 200, 2, 130, 70, 48, "normal"),
+             (2, 256, 4, 16, 16, 128, "strong")]
+ODD_IDS = ["chunk1", "hd20-S13", "hd130-S70-chunk48", "strong-decay"]
+
+
+def _odd_scan_inputs(B, L, h, hd, S, decay):
+    rng = np.random.RandomState(L + hd + S)
+    x, Bm, Cm, dt, A = _scan_inputs(rng, B, L, h, hd, S)
+    if decay == "strong":     # dt A under -30 a step: exp(acs) -> 0
+        dt = (np.abs(rng.randn(B, L, h)) + 0.5).astype(np.float32)
+        A = np.full((h,), -60.0, np.float32)
+    return x, Bm, Cm, dt, A
+
+
+@pytest.mark.parametrize("B,L,h,hd,S,chunk,decay", ODD_SCANS, ids=ODD_IDS)
+def test_plain_ssd_scan_odd_shapes_match_oracle(B, L, h, hd, S, chunk,
+                                                decay):
+    """The plain version at the odd shapes the card kernel is checked at
+    (its padding paths) against the sequential oracle; the strong decay
+    leaves y close to the diagonal term and the state close to the last
+    step's."""
+    arrs = _odd_scan_inputs(B, L, h, hd, S, decay)
+    y, st = ops.ssd_scan(*map(_t, arrs), chunk=chunk)
+    oracle = np.asarray(jref.ssd_scan(*map(jnp.asarray, arrs)))
+    np.testing.assert_allclose(y.numpy(), oracle, **SCAN_TOL)
+    assert torch.isfinite(st).all()
+    if decay == "strong":
+        x, Bm, Cm, dt, A = arrs
+        last = dt[:, -1, :, None, None] * x[:, -1, :, :, None] \
+            * Bm[:, -1, None, None, :]
+        np.testing.assert_allclose(st.numpy(), last, **SCAN_TOL)
+
+
 def _jax_scan_inputs(p, x, cfg):
     """mamba_apply's own scan inputs (projections, causal conv, A), from
     JAX's functions and its lines."""
@@ -521,6 +559,113 @@ def test_launcher_serves_zamba2_on_cpu(capsys):
     assert "3/3 completed" in text and "dense cache" in text
 
 
+# ------------------------------------------------------------ geometry
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
+                         ids=["f32", "bf16"])
+def test_ssd_mma_geometry_fits_every_accepted_shape(dtype):
+    """The tensor-core kernel's two launches fit one CTA's shared memory
+    at every chunk and every hd and S the wrapper accepts (those whose
+    CUDA-core CTA fits), and at least one scan CTA fits an SM."""
+    for chunk in range(1, ops.MAX_SSD_CHUNK + 1):
+        for hd in (1, 7, 8, 20, 63, 64, 65, 130, 4000):
+            for S in (1, 13, 64, 70, 1000, 14000):
+                if ops._ssd_smem_bytes(chunk, hd, S) > ops.SMEM_LIMIT:
+                    continue
+                geo = ops.ssd_scan_mma_geometry(2, 300, 3, hd, S, chunk,
+                                                dtype)
+                assert geo["smem"] <= ops.SMEM_LIMIT
+                assert geo["prep_smem"] <= ops.SMEM_LIMIT
+                assert geo["ctas_per_sm"] >= 1
+                assert geo["grid"] == (3 * -(-hd // 64), 2)
+
+
+@pytest.mark.parametrize("L,scratch", [(189, 204800), (64, 102400)],
+                         ids=["max-group-call", "smallest-group-call"])
+def test_ssd_mma_geometry_at_zamba2(L, scratch):
+    """zamba2's group calls, x (4, L, 112, 64) bf16, S 64, chunk 128: one
+    scan CTA per (head, row), 4 of them an SM, so the 448 fit the 132 SMs
+    in one wave; the C.B^T launch takes a CTA per (16-row tile, chunk,
+    row), and its fragments (G, C and B^T) are 0.8 MB at L 189.  f32 x
+    keeps 2 CTAs an SM."""
+    geo = ops.ssd_scan_mma_geometry(4, L, 112, 64, 64, 128, torch.bfloat16)
+    assert geo["grid"] == (112, 4) and geo["threads"] == 128
+    assert geo["smem"] == 2 * 128 * 72 * 2 + 4 * (64 * 68 + 5 * 128) \
+        == 56832
+    assert geo["ctas_per_sm"] == 4 and geo["waves"] == 1
+    assert geo["prep_grid"] == (8 * -(-L // 128), 4)
+    assert geo["prep_smem"] == 4 * (16 * 68 * 9 + 16 * 132) == 47616
+    assert geo["scratch_floats"] == scratch
+    f32 = ops.ssd_scan_mma_geometry(4, L, 112, 64, 64, 128, torch.float32)
+    assert f32["smem"] == 2 * 128 * 68 * 4 + 4 * (64 * 68 + 5 * 128) \
+        == 89600
+    assert f32["ctas_per_sm"] == 2
+
+
+@pytest.mark.parametrize("chunk", [1, 128])
+def test_ssd_mma_geometry_chunk_bounds(chunk):
+    """chunk 1: one 16-row tile a chunk (rows 1-15 zero-filled), one C.B^T
+    CTA per step; chunk 128: eight.  The fragments of a (row, chunk): G's
+    rt (rt + 1) tiles on and below the diagonal, C's rt x 8 and B^T's
+    4 x 2 rt per 64 columns of S."""
+    rt = -(-chunk // 16)
+    geo = ops.ssd_scan_mma_geometry(3, 300, 5, 96, 100, chunk,
+                                    torch.float32)
+    n_chunks = -(-300 // chunk)
+    assert geo["prep_grid"] == (rt * n_chunks, 3)
+    assert geo["grid"] == (5 * 2, 3)
+    assert geo["smem"] == 2 * 16 * rt * 68 * 4 + 4 * (64 * 68 + 5 * 16 * rt)
+    frags = rt * (rt + 1) + rt * 8 * 2 + 4 * 2 * 2 * rt
+    assert geo["scratch_floats"] == 3 * n_chunks * frags * 128
+
+
+def _scan_args(shape_over=None, dtype_over=None, chunk=128):
+    """CPU tensors of a valid ssd_scan call (B 1, L 8, h 2, hd 16, S 4),
+    with one argument's shape or dtype replaced."""
+    shapes = dict(x=(1, 8, 2, 16), Bm=(1, 8, 4), Cm=(1, 8, 4), dt=(1, 8, 2),
+                  A=(2,))
+    shapes.update(shape_over or {})
+    args = {k: torch.zeros(v) for k, v in shapes.items()}
+    for k, dt in (dtype_over or {}).items():
+        args[k] = args[k].to(dt)
+    return [args[k] for k in ("x", "Bm", "Cm", "dt", "A")], chunk
+
+
+@pytest.mark.parametrize("over,err,match", [
+    (dict(dtype_over=dict(Bm=torch.float64)), TypeError,
+     "Bm must be float32"),
+    (dict(dtype_over=dict(x=torch.float16)), TypeError,
+     "x dtype torch.float16 unsupported"),
+    (dict(shape_over=dict(dt=(1, 8, 3))), ValueError, "do not match x"),
+    (dict(shape_over=dict(x=(8, 2, 16))), ValueError,
+     r"is not \(B, L, h, hd\)"),
+    (dict(chunk=0), ValueError, r"chunk 0 not in \[1, 128\]"),
+    (dict(chunk=129), ValueError, r"chunk 129 not in \[1, 128\]"),
+    (dict(shape_over=dict(Bm=(1, 8, 0), Cm=(1, 8, 0))), ValueError,
+     "bytes of shared memory"),
+    (dict(shape_over=dict(x=(1, 8, 2, 300), Bm=(1, 8, 200), Cm=(1, 8, 200))),
+     ValueError, r"need 666784 bytes of shared memory \(limit 232448\)"),
+], ids=["Bm-f64", "x-f16", "dt-shape", "x-3d", "chunk0", "chunk129", "S0",
+        "smem"])
+def test_ssd_scan_card_checks_refuse_as_before(over, err, match):
+    """What the wrapper refuses on the card, with the same errors as
+    before the tensor-core kernel: the checks run on CPU tensors here."""
+    args, chunk = _scan_args(**over)
+    with pytest.raises(err, match=match):
+        ops._check_ssd(*args, chunk)
+
+
+def test_ssd_scan_card_checks_refuse_non_contiguous():
+    args, chunk = _scan_args()
+    args[1] = torch.zeros(1, 4, 8).transpose(1, 2)
+    with pytest.raises(ValueError, match="Bm must be contiguous"):
+        ops._check_ssd(*args, chunk)
+    args, chunk = _scan_args()
+    args[0] = torch.zeros(1, 8, 16, 2).transpose(2, 3)
+    with pytest.raises(ValueError, match="x must be contiguous"):
+        ops._check_ssd(*args, chunk)
+    assert ops._check_ssd(*_scan_args()[0], 128) == (1, 8, 2, 16, 4)
+
+
 # ------------------------------------------------------------ devices
 def test_wrapper_refuses_devices_without_a_kernel():
     meta = dict(device="meta")
@@ -539,15 +684,72 @@ def cuda():
     return torch.device("cuda")
 
 
+def _on_card_scan(args, chunk, dtype):
+    """The wrapper on the card (one call, on the tensor-core kernel)
+    against the plain version on the same inputs: within 1e-3 abs + rel
+    with f32 x, 2e-2 normwise with bf16 x."""
+    args = [args[0].to(dtype)] + list(args[1:])
+    before = dict(ops.LAUNCHES)
+    y, st = ops.ssd_scan(*args, chunk=chunk)
+    torch.cuda.synchronize()
+    assert {k: ops.LAUNCHES[k] - before[k] for k in before} == \
+        {k: int(k in ("ssd_scan", "ssd_scan_mma")) for k in before}
+    ey, est = ref.ssd_scan(*args, chunk=chunk)
+    if dtype == torch.float32:
+        torch.testing.assert_close(y, ey, **SCAN_TOL)
+        torch.testing.assert_close(st, est, **SCAN_TOL)
+    else:
+        _assert_bf16_close(y.cpu(), ey.cpu())
+        _assert_bf16_close(st.cpu(), est.cpu())
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
+                         ids=["f32", "bf16"])
 @pytest.mark.parametrize("L", [256, 209])
-def test_ssd_kernel_matches_plain_on_card(cuda, L):
+def test_ssd_kernel_matches_plain_on_card(cuda, L, dtype):
     rng = np.random.RandomState(L)
     arrs = _scan_inputs(rng, 2, L, 112, 64, 64)
-    args = [torch.from_numpy(a).to(cuda) for a in arrs]
-    before = ops.LAUNCHES["ssd_scan"]
-    y, st = ops.ssd_scan(*args, chunk=128)
-    torch.cuda.synchronize()
-    assert ops.LAUNCHES["ssd_scan"] == before + 1
-    ey, est = ref.ssd_scan(*args, chunk=128)
-    torch.testing.assert_close(y, ey, **SCAN_TOL)
-    torch.testing.assert_close(st, est, **SCAN_TOL)
+    _on_card_scan([torch.from_numpy(a).to(cuda) for a in arrs], 128, dtype)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
+                         ids=["f32", "bf16"])
+@pytest.mark.parametrize("B,L,h,hd,S,chunk,decay", ODD_SCANS, ids=ODD_IDS)
+def test_ssd_kernel_odd_shapes_on_card(cuda, B, L, h, hd, S, chunk, decay,
+                                       dtype):
+    arrs = _odd_scan_inputs(B, L, h, hd, S, decay)
+    _on_card_scan([torch.from_numpy(a).to(cuda) for a in arrs], chunk,
+                  dtype)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
+                         ids=["f32", "bf16"])
+@pytest.mark.parametrize("shape", [(4, 189, 112, 64, 64, 128),
+                                   (4, 64, 112, 64, 64, 128),
+                                   (2, 37, 3, 24, 16, 1),
+                                   (1, 200, 2, 130, 70, 48)],
+                         ids=["zamba2-max", "zamba2-smallest", "chunk1",
+                              "hd130"])
+def test_ssd_mma_geometry_matches_on_card(cuda, shape, dtype):
+    """ssd_scan_mma_geometry's sizes and grids are the library's, the card
+    holds at least the CTAs an SM it computes, and the scan kernel keeps
+    to the registers its launch bounds allow."""
+    geo = ops.ssd_scan_mma_geometry(*shape, dtype)
+    card = ops.ssd_scan_mma_card_geometry(*shape, dtype)
+    assert card["scratch_floats"] == geo["scratch_floats"]
+    assert (card["smem"], card["prep_smem"]) == (geo["smem"],
+                                                 geo["prep_smem"])
+    assert (card["grid_x"], card["grid_y"]) == geo["grid"]
+    assert card["prep_grid_x"] == geo["prep_grid"][0]
+    assert card["ctas_per_sm"] >= geo["ctas_per_sm"]
+    assert card["registers"] <= ops.SSD_MAX_REGS
+
+
+def test_ssd_scan_refuses_on_card(cuda):
+    """The card call refuses what it refused, with the same errors."""
+    args, chunk = _scan_args(chunk=129)
+    with pytest.raises(ValueError, match=r"chunk 129 not in \[1, 128\]"):
+        ops.ssd_scan(*[a.to(cuda) for a in args], chunk=chunk)
+    args, _ = _scan_args(dtype_over=dict(dt=torch.float64))
+    with pytest.raises(TypeError, match="dt must be float32"):
+        ops.ssd_scan(*[a.to(cuda) for a in args])
