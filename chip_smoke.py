@@ -18,7 +18,12 @@ Phases (each prints its own lines and wall time; any failure raises):
                 flash_attention_mma.cu and moe_gmm_wgmma.cu, and the f32
                 ones; ssd_scan as ssd_scan_mma.cu, the tensor-core kernel
                 of every call, and ssd_scan.cu, the CUDA-core kernel it
-                replaced), one nvcc process per source (kernels/build.py),
+                replaced; rao_scatter_add as rao_scatter_onchip.cu, bf16 in
+                one launch with the sums on chip, and rao_scatter.cu, f32
+                and the three-launch kernel it replaced; rmsnorm as
+                rmsnorm_row.cu, a row's loads in flight at once, and
+                rmsnorm.cu, the one-warp kernel it replaced), one nvcc
+                process per source (kernels/build.py),
                 each kernel's ptxas registers and spills, each source's
                 nvcc seconds;
   3. kernels  — each kernel against its plain PyTorch version: the
@@ -35,15 +40,28 @@ Phases (each prints its own lines and wall time; any failure raises):
                 on LAUNCHES["moe_gmm_wgmma"] exactly when TMA takes it;
                 rao_scatter_add at granite's combine
                 shapes (D=1536, M in {320, 20480} random duplicates, and
-                CENTRAL: every update on one row); flash_attention at the
+                CENTRAL: every update on one row), both dtypes, then in
+                bf16 the one-shot group call (837, 8360), the pad row (80%
+                of the ids on the last row), ids out of range, N at and
+                past one slab's rows, 5000 and 20000, M 20483 and D 130
+                (a column a lane), with 256- and 512-thread CTAs, each bf16
+                case on the on-chip kernel
+                (LAUNCHES["rao_scatter_add_onchip"] one up) beside the
+                three-launch kernel of rao_scatter.cu called through the
+                library, printing its geometry
+                (ops.rao_scatter_onchip_geometry); flash_attention at the
                 three models' head shapes (32/8 x 128, 24/8 x 64, 32/32 x
                 112), S in {17, 64, 189, 209, 300} (the main path's 189
                 and 209; 17 and 300 no multiple of 16 or 64), B in {1, 4},
                 windowed cases, S != T causal and not, and odd head dims
                 (8, 40, 200: zero-padded to 16 in the bf16 kernel), each
                 in bf16 (tensor-core kernel) and f32 (CUDA-core kernel);
-                rmsnorm at D in {64, 1536, 3584, 5120, 7168}, N in
-                {1, 8, 1200}; ssd_scan (y and final state) at zamba2's
+                rmsnorm at D in {1536, 3584, 5120, 7168, 64, 130}, N in
+                {1, 8, 512, 836, 1200}, both dtypes, on the row-spread
+                kernel (LAUNCHES["rmsnorm_row"] one up) beside the one-warp
+                kernel of rmsnorm.cu called through the library, printing
+                its geometry (ops.rmsnorm_row_geometry); ssd_scan (y and
+                final state) at zamba2's
                 heads (h 112, hd 64, S 64) with L a multiple of 128, L
                 ragged, one chunk and several, plus odd small shapes,
                 chunk 1, hd and S not multiples of 8 (hd 130: three
@@ -107,7 +125,11 @@ Phases (each prints its own lines and wall time; any failure raises):
                 split-KV kernel, LAUNCHES["paged_attention_split"] equal
                 to it),
                 flash_attention L per group call, rmsnorm 2L + 1 per model
-                call, moe_gmm 3L and rao_scatter_add L per model call;
+                call (all on the row-spread kernel,
+                LAUNCHES["rmsnorm_row"] equal to it), moe_gmm 3L and
+                rao_scatter_add L per model call (bf16: all on the
+                on-chip kernel, LAUNCHES["rao_scatter_add_onchip"] equal
+                to it, 0 in the f32 tiny engines);
                 zamba2: ssd_scan 81 and flash_attention 13 per group call,
                 rmsnorm 189 per model call, no paged kernel, every
                 ssd_scan call on the tensor-core kernel
@@ -132,7 +154,15 @@ Phases (each prints its own lines and wall time; any failure raises):
                 and the plain version, after both flushes, with the
                 launch geometry and the f32-FMA bound (all its work at 67
                 TFLOP/s); rao_scatter_add at the granite chunked path's
-                decode tick and largest tick; moe_gmm at four calls
+                decode tick and largest tick and the capacity one-shot
+                path's largest group call, the on-chip kernel beside the
+                three-launch kernel called through the library,
+                index_add_ and the plain version, after both flushes;
+                rmsnorm at the smallest (decode) and the largest call of
+                mistral one-shot, granite one-shot and zamba2, the
+                row-spread kernel beside the one-warp kernel called
+                through the library, F.rms_norm and the plain version,
+                after both flushes; moe_gmm at four calls
                 of the granite chunked path (the gate and the down
                 projection, each at decode and in the tick with the most
                 work) and two of the capacity one-shot path (its largest
@@ -200,14 +230,16 @@ KERNELS = {
         wmma_source="src/repro_torch/kernels/csrc/moe_gmm.cu",
         replaces="src/repro/kernels/moe_gmm.py:62"),
     "rao_scatter_add": dict(
-        source="src/repro_torch/kernels/csrc/rao_scatter.cu",
+        source="src/repro_torch/kernels/csrc/rao_scatter_onchip.cu",
+        old_source="src/repro_torch/kernels/csrc/rao_scatter.cu",
         replaces="src/repro/kernels/rao_scatter.py:53"),
     "flash_attention": dict(
         source="src/repro_torch/kernels/csrc/flash_attention_mma.cu",
         f32_source="src/repro_torch/kernels/csrc/flash_attention.cu",
         replaces="src/repro/kernels/flash_attention.py:99"),
     "rmsnorm": dict(
-        source="src/repro_torch/kernels/csrc/rmsnorm.cu",
+        source="src/repro_torch/kernels/csrc/rmsnorm_row.cu",
+        old_source="src/repro_torch/kernels/csrc/rmsnorm.cu",
         replaces="src/repro/kernels/rmsnorm.py:29"),
     "ssd_scan": dict(
         source="src/repro_torch/kernels/csrc/ssd_scan_mma.cu",
@@ -325,12 +357,15 @@ def phase_build():
     kernel = "?"
     for line in (build.build_log or "").splitlines():
         m = re.search(r"Compiling entry function '_ZN(\w+)'", line)
-        if m:   # the kernel's name, its int template arguments (the bf16
-            # flash kernel's padded head dim, moe_gmm_wgmma's tile) and
-            # the bf16 mark
+        if m:   # the kernel's name, its int and bool template arguments
+            # (the bf16 flash kernel's padded head dim, moe_gmm_wgmma's
+            # tile, rmsnorm_row's vector mode and loads a thread) and the
+            # bf16 mark
             kernel, rest = _last_name(m.group(1))
-            args = re.match(r"I((?:Li\d+E)+)E", rest)
-            targs = re.findall(r"Li(\d+)E", args.group(1)) if args else []
+            args = re.match(r"I((?:\d+\w+?|[a-z])?(?:L[bi]\d+E)+)E", rest)
+            targs = [v if t == "i" else ("false", "true")[int(v)]
+                     for t, v in re.findall(r"L([bi])(\d+)E", args.group(1))
+                     ] if args else []
             kernel += (f"<{', '.join(targs)}>" if targs else "") + \
                 (" bf16" if "bfloat16" in line else "")
         if "registers" in line or "spill" in line or "error" in line:
@@ -375,7 +410,9 @@ def phase_kernels(errs):
             check_decode(rng, errs, torch.bfloat16, 2e-2, label, H, K, hd,
                          bt, nb, lens, window)
     check_moe_kernels(rng, errs)
+    check_rao_kernels(rng, errs)
     check_oneshot_kernels(rng, errs)
+    check_rmsnorm_kernels(rng, errs)
     check_ssd_kernel(rng, errs)
 
 
@@ -647,8 +684,8 @@ def check_ssd_kernel(rng, errs):
 
 
 def check_oneshot_kernels(rng, errs):
-    """flash_attention at both served models' head shapes and rmsnorm at
-    their widths (and the q/k-norm width), against the plain versions."""
+    """flash_attention at the served models' head shapes against the plain
+    version."""
     def rnd(shape, dtype, scale=1.0):
         return torch.from_numpy(
             (rng.randn(*shape) * scale).astype(np.float32)).to(DEV, dtype)
@@ -692,27 +729,66 @@ def check_oneshot_kernels(rng, errs):
             errs["flash_attention"].append(e)
         print(f"[kernels] flash_attention {str(dtype)[6:]}: largest |exp| "
               f"over {len(flash_cases)} cases {top:.4g} (tol {tol})")
-        for D in (64, 1536, 3584, 5120, 7168):
-            for N in (1, 8, 1200):
-                x = rnd((N, D), dtype)
-                w = rnd((D,), dtype, 0.1)
-                before = ops.LAUNCHES["rmsnorm"]
+
+
+def old_rmsnorm(x, w, eps, out):
+    """rmsnorm.cu's one-warp kernel on the wrapper's arguments, into out,
+    launched through the library (no count): the kernel the row-spread
+    one replaced on the main path, as the before of phases 3 and 6.
+    Returns the CUDA error."""
+    D = x.shape[-1]
+    return build.load().rmsnorm_launch(
+        ops._DTYPES[x.dtype], x.data_ptr(), w.data_ptr(), out.data_ptr(),
+        x.numel() // D, D, float(eps), ops._stream_ptr(x.device))
+
+
+def rms_geometry_line(x):
+    D = x.shape[-1]
+    geo = ops.rmsnorm_row_geometry(x.numel() // D, D, x.dtype)
+    return (f"{geo['threads_per_row']} threads a row x {geo['rows_per_cta']}"
+            f" rows a CTA, {geo['per_thread']} loads of {geo['vec']} "
+            f"elements a thread, grid {geo['grid']}")
+
+
+def check_rmsnorm_kernels(rng, errs):
+    """rmsnorm at the served widths (1536, 3584, 5120, 7168), the q/k-norm
+    width 64 and an odd width (130: an element a unit), at decode (1, 8)
+    and prefill (512, 836, 1200) row counts, both dtypes, on the
+    row-spread kernel (LAUNCHES["rmsnorm_row"] one up), with the one-warp
+    kernel of rmsnorm.cu, called through the library, held to the same
+    tolerance beside it."""
+    for dtype, tol in ((torch.bfloat16, 2e-2), (torch.float32, 1e-4)):
+        for D in (1536, 3584, 5120, 7168, 64, 130):
+            for N in (1, 8, 512, 836, 1200):
+                x = torch.from_numpy(rng.randn(N, D).astype(np.float32)) \
+                    .to(DEV, dtype)
+                w = torch.from_numpy((rng.randn(D) * 0.1).astype(np.float32)) \
+                    .to(DEV, dtype)
+                before = dict(ops.LAUNCHES)
                 got = ops.rmsnorm(x, w, 1e-5)
                 exp = ref.rmsnorm(x, w, 1e-5)
+                old = torch.empty_like(x)
+                if old_rmsnorm(x, w, 1e-5, old):
+                    raise AssertionError("the one-warp rmsnorm kernel did not "
+                                         "launch")
                 torch.cuda.synchronize()
-                e = max_err(got, exp)
-                ok = close(got, exp, tol) and \
-                    ops.LAUNCHES["rmsnorm"] == before + 1
+                e, o = max_err(got, exp), max_err(old, exp)
+                ok = close(got, exp, tol) and close(old, exp, tol) and \
+                    all(ops.LAUNCHES[k] == before[k] + 1
+                        for k in ("rmsnorm", "rmsnorm_row"))
                 print(f"[kernels] rmsnorm {str(dtype)[6:]} ({N}, {D}): "
-                      f"max_abs_err {e:.3g} (tol {tol} abs + rel)")
+                      f"max_abs_err {e:.3g}, one-warp kernel {o:.3g} (tol "
+                      f"{tol} abs + rel); {rms_geometry_line(x)}")
                 if not ok:
-                    raise AssertionError(f"rmsnorm disagrees: {e}")
+                    raise AssertionError(f"rmsnorm disagrees: {e} (one-warp "
+                                         f"kernel {o})")
                 errs["rmsnorm"].append(e)
+                errs["rmsnorm_old"].append(o)
 
 
 def check_moe_kernels(rng, errs):
-    """moe_gmm and rao_scatter_add against their plain versions at
-    granite's shapes (E = 40 experts, d_model 1536, d_ff_expert 512)."""
+    """moe_gmm against its plain version at granite's shapes (E = 40
+    experts, d_model 1536, d_ff_expert 512)."""
     E, Dm, Fe = 40, 1536, 512
 
     def rnd(shape, dtype, scale=1.0):
@@ -769,28 +845,104 @@ def check_moe_kernels(rng, errs):
                                  f"gave {tuple(empty.shape)}")
         print(f"[kernels] moe_gmm {str(dtype)[6:]} zero-size ({E}, 0, {Dm}):"
               f" empty {tuple(empty.shape)}, no launch")
-        for name, N, M in (("duplicates", 9, 320), ("duplicates", 513, 20480),
-                           ("CENTRAL", 513, 20480)):
-            if name == "CENTRAL":           # every update on row 0, ones
-                idx = torch.zeros(M, dtype=torch.int32, device=DEV)
-                vals = torch.ones((M, Dm), dtype=dtype, device=DEV)
-            else:
-                idx = torch.from_numpy(rng.randint(0, N, size=M)
-                                       .astype(np.int32)).to(DEV)
-                vals = rnd((M, Dm), dtype)
-            table = rnd((N, Dm), dtype)
-            exp = ref.rao_scatter_add(table, idx, vals)
-            before = ops.LAUNCHES["rao_scatter_add"]
-            got = ops.rao_scatter_add(table, idx, vals)
-            torch.cuda.synchronize()
-            e = max_err(got, exp)
-            ok = close(got, exp, tol) and got is table and \
-                ops.LAUNCHES["rao_scatter_add"] == before + 1
-            print(f"[kernels] rao_scatter_add {str(dtype)[6:]} {name} N {N} "
-                  f"M {M} D {Dm}: max_abs_err {e:.3g} (tol {tol} abs + rel)")
-            if not ok:
-                raise AssertionError(f"rao_scatter_add disagrees: {e}")
-            errs["rao_scatter_add"].append(e)
+
+
+def old_rao(table, idx, vals):
+    """rao_scatter.cu on the wrapper's arguments, in place, launched
+    through the library (no count), bf16 with the N x D f32 scratch its
+    wrapper allocated (widen, scatter, narrow): the kernel the on-chip one
+    replaced on the main path, as the before of phases 3 and 6.  Returns
+    the CUDA error."""
+    N, D = table.shape
+    scratch = torch.empty((N, D), dtype=torch.float32, device=table.device) \
+        if table.dtype == torch.bfloat16 else None
+    return build.load().rao_scatter_add_launch(
+        ops._DTYPES[table.dtype], table.data_ptr(), idx.data_ptr(),
+        vals.data_ptr(), None if scratch is None else scratch.data_ptr(), N,
+        idx.shape[0], D, ops._stream_ptr(table.device))
+
+
+def rao_geometry_line(N, M, D):
+    geo = ops.rao_scatter_onchip_geometry(N, M, D)
+    return (f"tiles of {geo['rows']} rows x {geo['cols']} columns "
+            f"({geo['vec']} a lane), clusters of {geo['split']} CTAs of "
+            f"{geo['threads']} threads x {geo['per_cta']} updates, grid "
+            f"{geo['grid']} = {geo['ctas']} CTAs, {geo['smem']} B of shared "
+            f"memory a CTA")
+
+
+def check_rao_kernels(rng, errs):
+    """rao_scatter_add at granite's combine (D 1536): random duplicates at
+    the decode (9, 320) and largest tick (513, 20480) shapes and CENTRAL
+    (every update on row 0), in bf16 (the on-chip kernel,
+    LAUNCHES["rao_scatter_add_onchip"] one up) and f32 (the atomic
+    kernel); then in bf16 the one-shot group call (837, 8360), the pad row
+    (80% of the ids on the last row, as dropless routing pads), ids
+    outside [0, N) (dropped; held against the plain version of the ids in
+    range), N at and past one slab's rows (the geometry's row tiles) and
+    far past it (also with CTAs of 256 threads), M not a multiple of any
+    block size, and D 130 (a column a lane), each with CTAs of 256 and of
+    512 threads.  In bf16 the three-launch kernel of rao_scatter.cu,
+    called through the library, is held to the same tolerance beside it;
+    each case prints the on-chip geometry."""
+    slab_rows = ops.rao_slab_bytes(512) // (4 * ops.RAO_COLS)
+    cases = [(dtype, name, N, M, 1536)
+             for dtype in (torch.bfloat16, torch.float32)
+             for name, N, M in (("duplicates", 9, 320),
+                                ("duplicates", 513, 20480),
+                                ("CENTRAL", 513, 20480))]
+    cases += [(torch.bfloat16, name, N, M, D) for name, N, M, D in (
+        ("duplicates", 837, 8360, 1536), ("pad row", 513, 20480, 1536),
+        ("out of range", 513, 20480, 1536),
+        ("duplicates", slab_rows, 8000, 1536),
+        ("duplicates", slab_rows + 1, 8000, 1536),
+        ("pad row", 20000, 20480, 1536), ("duplicates", 5000, 1000, 1536),
+        ("duplicates", 513, 20483, 1536), ("duplicates", 65, 300, 130),
+        ("pad row", 65, 3000, 130))]
+    for dtype, name, N, M, Dm in cases:
+        tol = 2e-2 if dtype == torch.bfloat16 else 1e-4
+        idx = rng.randint(0, N, size=M).astype(np.int32)
+        if name == "CENTRAL":               # every update on row 0, ones
+            idx[:] = 0
+            vals = torch.ones((M, Dm), dtype=dtype, device=DEV)
+        else:
+            vals = torch.from_numpy(rng.randn(M, Dm).astype(np.float32)) \
+                .to(DEV, dtype)
+        if name == "pad row":
+            idx[rng.rand(M) < 0.8] = N - 1
+        elif name == "out of range":
+            idx[::3] = rng.choice([-1, -9, N, N + 100], size=idx[::3].shape)
+        keep = torch.from_numpy((idx >= 0) & (idx < N)).to(DEV)
+        idx = torch.from_numpy(idx).to(DEV)
+        table = torch.from_numpy(rng.randn(N, Dm).astype(np.float32)) \
+            .to(DEV, dtype)
+        exp = ref.rao_scatter_add(table, idx[keep], vals[keep])
+        old = table.clone()
+        before = dict(ops.LAUNCHES)
+        got = ops.rao_scatter_add(table, idx, vals)
+        onchip = dtype == torch.bfloat16
+        if onchip and old_rao(old, idx, vals):
+            raise AssertionError("the three-launch rao_scatter_add kernel did "
+                                 "not launch")
+        torch.cuda.synchronize()
+        e = max_err(got, exp)
+        o = max_err(old, exp) if onchip else e
+        ok = close(got, exp, tol) and (not onchip or close(old, exp, tol)) \
+            and got is table and \
+            ops.LAUNCHES["rao_scatter_add"] == before["rao_scatter_add"] + 1 \
+            and ops.LAUNCHES["rao_scatter_add_onchip"] == \
+            before["rao_scatter_add_onchip"] + onchip
+        print(f"[kernels] rao_scatter_add{'_onchip' if onchip else ''} "
+              f"{str(dtype)[6:]} {name} N {N} M {M} D {Dm}: max_abs_err "
+              f"{e:.3g}" + (f", three-launch kernel {o:.3g}" if onchip else "")
+              + f" (tol {tol} abs + rel)"
+              + (f"; {rao_geometry_line(N, M, Dm)}" if onchip else ""))
+        if not ok:
+            raise AssertionError(f"rao_scatter_add disagrees: {e} "
+                                 f"(three-launch kernel {o})")
+        errs["rao_scatter_add"].append(e)
+        if onchip:
+            errs["rao_scatter_add_old"].append(o)
 
 
 def tiny_trace(vocab):
@@ -824,7 +976,7 @@ ONESHOT_KERNELS = ("flash_attention", "paged_attention", "rmsnorm")
 HYBRID_KERNELS = ("ssd_scan", "ssd_scan_mma", "flash_attention", "rmsnorm")
 # counts of the kernels that take bf16 only
 BF16_ONLY = ("paged_attention_split", "paged_prefill_attention_mma",
-             "flash_attention_mma", "moe_gmm_wgmma")
+             "flash_attention_mma", "moe_gmm_wgmma", "rao_scatter_add_onchip")
 
 
 def leaked(srv):
@@ -878,6 +1030,9 @@ def phase_tiny():
             if dev == "cuda" and not all(launched[k] for k in kernels):
                 raise AssertionError(f"tiny {label} skipped a kernel: "
                                      f"{launched}")
+            if launched["rmsnorm_row"] != launched["rmsnorm"]:
+                raise AssertionError(f"the tiny {label} engine took another "
+                                     f"rmsnorm kernel: {launched}")
             if any(launched[k] for k in BF16_ONLY):
                 raise AssertionError(f"the f32 tiny {label} engine took a "
                                      f"bf16 kernel: {launched}")
@@ -969,7 +1124,7 @@ def expected_launches(cfg, st, groups):
            "flash_attention": L * groups, "flash_attention_mma": 0,
            "rmsnorm": norms_per_call(cfg) * calls,
            "moe_gmm": 0, "moe_gmm_wgmma": 0, "rao_scatter_add": 0,
-           "ssd_scan": 0, "ssd_scan_mma": 0}
+           "rao_scatter_add_onchip": 0, "ssd_scan": 0, "ssd_scan_mma": 0}
     if cfg.family == "hybrid":   # every ssd_scan call on the tensor cores
         exp["paged_attention"] = 0
         exp["flash_attention"] = transformer.hybrid_layout(cfg)[0] * groups
@@ -977,7 +1132,9 @@ def expected_launches(cfg, st, groups):
     if cfg.family == "moe":
         exp["moe_gmm"] = 3 * L * calls
         exp["rao_scatter_add"] = L * calls
+    exp["rmsnorm_row"] = exp["rmsnorm"]     # every call, both dtypes
     if cfg.param_dtype == "bfloat16":   # bf16 runs the redesigned kernels
+        exp["rao_scatter_add_onchip"] = exp["rao_scatter_add"]
         exp["paged_attention_split"] = exp["paged_attention"]
         exp["paged_prefill_attention_mma"] = exp["paged_prefill_attention"]
         exp["flash_attention_mma"] = exp["flash_attention"]
@@ -1480,45 +1637,77 @@ def phase_measure_moe(recs, errs):
     out = {"moe_gmm": dict(
         {k: v for k, v in gate_max.items() if "clean" not in k},
         shapes=shapes)}
+    rows = measure_rao(recs, errs, flush, "granite chunked", ("decode", "max"))
+    top = next(v for k, v in rows.items() if " max " in k)
+    out["rao_scatter_add"] = dict(
+        {k: v for k, v in top.items() if "clean" not in k}, shapes=rows)
+    return out
+
+
+def measure_rao(recs, errs, flush, path, ticks):
+    """Time rao_scatter_add at layer 0's call of a granite path in each of
+    ``ticks`` ("decode": the model call with the fewest updates, "max":
+    the one with the most), on the path's own idx and vals into the zero
+    table the path passes: the wrapper (which must take the on-chip
+    kernel), the three-launch kernel of rao_scatter.cu called through the
+    library, index_add_ and the plain version, the first three after a
+    dirty and after a clean L2 flush; and the bound.  Returns a row per
+    call, keyed by path, tick and M."""
     sized = sorted(recs["rao_scatter_add"], key=lambda c: rao_work(*c[0])[1])
-    rao_rows = {}
-    for label, (args, _) in (("decode", sized[0]), ("max", sized[-1])):
-        table, idx, vals = args
+    picked = {"decode": sized[0], "max": sized[-1]}
+    rows = {}
+    for label in ticks:
+        (table, idx, vals), _ = picked[label]
+        N, D = table.shape
         nbytes, flops = rao_work(table, idx, vals)
         zero = torch.zeros_like(table)        # the path's input
         exp = ref.rao_scatter_add(zero, idx, vals)
+        before = ops.LAUNCHES["rao_scatter_add_onchip"]
         got = ops.rao_scatter_add(zero.clone(), idx, vals)
+        if ops.LAUNCHES["rao_scatter_add_onchip"] != before + 1:
+            raise AssertionError("rao_scatter_add did not take the on-chip "
+                                 "kernel")
+        old = zero.clone()
+        if old_rao(old, idx, vals):
+            raise AssertionError("the three-launch rao_scatter_add kernel did "
+                                 "not launch")
         lib = zero.clone().index_add_(0, idx, vals)
         torch.cuda.synchronize()
-        err = max_err(got, exp)
-        if not close(got, exp, 2e-2):
+        err, old_err = max_err(got, exp), max_err(old, exp)
+        if not (close(got, exp, 2e-2) and close(old, exp, 2e-2)):
             raise AssertionError(f"rao_scatter_add disagrees on main-path "
-                                 f"inputs: {err}")
+                                 f"inputs: {err} (three-launch {old_err})")
         errs["rao_scatter_add"].append(err)
-        lib_err = max_err(lib, exp)
-        # the kernel and index_add_ accumulate into copies in place
-        k_ms = time_ms(partial(ops.rao_scatter_add, zero.clone(), idx,
-                               vals), 20, flush)
+        errs["rao_scatter_add_old"].append(old_err)
+        # each accumulates into its own copy, in place, call after call
+        run = partial(ops.rao_scatter_add, zero.clone(), idx, vals)
+        three = partial(old_rao, zero.clone(), idx, vals)
+        index_add = partial(zero.clone().index_add_, 0, idx, vals)
+        k_ms, o_ms, l_ms = (time_ms(f, 20, flush)
+                            for f in (run, three, index_add))
+        k_cl, o_cl, l_cl = (time_ms(f, 20, flush, clean=True)
+                            for f in (run, three, index_add))
         p_ms = time_ms(partial(ref.rao_scatter_add, zero, idx, vals), 5,
-                       flush)
-        l_ms = time_ms(partial(zero.clone().index_add_, 0, idx, vals), 20,
                        flush)
         t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
         t_ops = flops / BF16_FLOPS * 1e3
         bound = max(t_bytes, t_ops)
-        print(f"[measure] rao_scatter_add ({label} tick) on main-path inputs "
-              f"table {tuple(table.shape)} idx {tuple(idx.shape)} vals "
-              f"{tuple(vals.shape)}: kernel {k_ms:.4f} ms, plain {p_ms:.4f} "
-              f"ms, index_add_ {l_ms:.4f} ms (index_add_ vs plain "
-              f"max_abs_err {lib_err:.3g}); bound {bound:.4f} ms ({nbytes} "
-              f"bytes -> {t_bytes:.4f} ms, {flops} ops -> {t_ops:.4f} ms); "
-              f"max_abs_err {err:.3g}")
-        rao_rows[f"granite chunked: {label} tick M {idx.shape[0]}"] = dict(
-            ms=k_ms, plain_ms=p_ms, library_ms=l_ms, bound_ms=float(bound),
-            bound_by="bytes" if t_bytes >= t_ops else "operations")
-    top = next(v for k, v in rao_rows.items() if " max tick" in k)
-    out["rao_scatter_add"] = dict(top, shapes=rao_rows)
-    return out
+        print(f"[measure] rao_scatter_add ({path}, {label}) on main-path "
+              f"inputs table {tuple(table.shape)} idx {tuple(idx.shape)} vals "
+              f"{tuple(vals.shape)}: on-chip {k_ms:.4f} ms, three-launch "
+              f"{o_ms:.4f} ms, index_add_ {l_ms:.4f} ms, plain {p_ms:.4f} ms;"
+              f" after a clean flush on-chip {k_cl:.4f}, three-launch "
+              f"{o_cl:.4f}, index_add_ {l_cl:.4f} ms; bound {bound:.4f} ms "
+              f"({nbytes} bytes -> {t_bytes:.4f} ms, {flops} ops -> "
+              f"{t_ops:.4f} ms); max_abs_err {err:.3g} (three-launch "
+              f"{old_err:.3g}, index_add_ vs plain {max_err(lib, exp):.3g});"
+              f" {rao_geometry_line(N, idx.shape[0], D)}")
+        rows[f"{path}: {label} M {idx.shape[0]}"] = dict(
+            ms=k_ms, old_ms=o_ms, plain_ms=p_ms, library_ms=l_ms,
+            bound_ms=float(bound),
+            bound_by="bytes" if t_bytes >= t_ops else "operations",
+            clean_ms=k_cl, old_clean_ms=o_cl, library_clean_ms=l_cl)
+    return rows
 
 
 @phase("measure")
@@ -1536,12 +1725,17 @@ def phase_measure_paged(recs, errs, path):
 
 
 @phase("measure")
-def phase_measure_gmm_oneshot(recs, errs):
+def phase_measure_moe_oneshot(recs, errs):
     """Time moe_gmm (``measure_gmm``) at the capacity one-shot path's
     largest gate and down calls (a group call), whose shapes take other
-    tile widths than the chunked path's, cold L2."""
+    tile widths than the chunked path's, and rao_scatter_add
+    (``measure_rao``) at its largest group call (two row tiles), cold L2;
+    returns each one's rows."""
     flush = torch.empty(256 << 20, dtype=torch.uint8, device=DEV)
-    return measure_gmm(recs, errs, flush, "granite one-shot", ("max",))
+    return {"moe_gmm": measure_gmm(recs, errs, flush, "granite one-shot",
+                                   ("max",)),
+            "rao_scatter_add": measure_rao(recs, errs, flush,
+                                           "granite one-shot", ("max",))}
 
 
 def flash_work(q, k, window):
@@ -1568,10 +1762,14 @@ def rms_work(x, w):
 
 @phase("measure")
 def phase_measure_oneshot(recs, errs, name):
-    """Time flash_attention and rmsnorm on a one-shot path's own inputs
-    (layer 0's call in its smallest and its largest model call), cold L2,
-    beside the plain version and one library call the port never makes:
-    scaled_dot_product_attention(is_causal, enable_gqa) and F.rms_norm."""
+    """Time flash_attention and rmsnorm on a one-shot or dense-cache
+    path's own inputs (layer 0's call in its smallest model call, a
+    decode tick, and its largest), cold L2, beside the plain version and
+    one library call the port never makes:
+    scaled_dot_product_attention(is_causal, enable_gqa) and F.rms_norm;
+    rmsnorm also beside the one-warp kernel of rmsnorm.cu called through
+    the library, and each after a clean flush too.  Returns per kernel the
+    largest call's row and, under ``shapes``, both."""
     flush = torch.empty(256 << 20, dtype=torch.uint8, device=DEV)
     sdpa = torch.nn.functional.scaled_dot_product_attention
     out = {}
@@ -1582,7 +1780,9 @@ def phase_measure_oneshot(recs, errs, name):
                 c[0][0], c[0][1], c[1].get("window", 0))[1])
         else:
             sized = sorted(calls, key=lambda c: c[0][0].numel())
+        rows = {}
         for label, (args, kw) in (("smallest", sized[0]), ("max", sized[-1])):
+            old = None
             if kname == "flash_attention":
                 q, k, v = args
                 window = kw.get("window", 0)
@@ -1611,8 +1811,18 @@ def phase_measure_oneshot(recs, errs, name):
                 lib = library()
                 lib_name = "F.rms_norm"
                 shape = f"x {tuple(x.shape)}"
+                old_out = torch.empty_like(x)
+                old = partial(old_rmsnorm, x, w, eps, old_out)
+                if old():
+                    raise AssertionError("the one-warp rmsnorm kernel did "
+                                         "not launch")
             exp = plain()
+            before = dict(ops.LAUNCHES)
             got = run()
+            if kname == "rmsnorm" and ops.LAUNCHES["rmsnorm_row"] != \
+                    before["rmsnorm_row"] + 1:
+                raise AssertionError("rmsnorm did not take the row-spread "
+                                     "kernel")
             torch.cuda.synchronize()
             err = max_err(got, exp)
             if not close(got, exp, 2e-2):
@@ -1623,19 +1833,38 @@ def phase_measure_oneshot(recs, errs, name):
             k_ms = time_ms(run, 20, flush)
             p_ms = time_ms(plain, 5, flush)
             l_ms = time_ms(library, 20, flush)
+            k_cl = time_ms(run, 20, flush, clean=True)
+            l_cl = time_ms(library, 20, flush, clean=True)
             t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
             bound = max(t_bytes, t_ops)
+            row = dict(ms=k_ms, plain_ms=p_ms, library_ms=l_ms,
+                       bound_ms=float(bound),
+                       bound_by="bytes" if t_bytes >= t_ops else "operations",
+                       clean_ms=k_cl, library_clean_ms=l_cl)
+            old_note = ""
+            if old is not None:
+                old_err = max_err(old_out, exp)
+                if not close(old_out, exp, 2e-2):
+                    raise AssertionError(f"the one-warp rmsnorm kernel "
+                                         f"disagrees on main-path inputs: "
+                                         f"{old_err}")
+                errs["rmsnorm_old"].append(old_err)
+                row.update(old_ms=time_ms(old, 20, flush),
+                           old_clean_ms=time_ms(old, 20, flush, clean=True))
+                old_note = (f", one-warp kernel {row['old_ms']:.4f} ms (clean "
+                            f"flush {row['old_clean_ms']:.4f}; max_abs_err "
+                            f"{old_err:.3g}); {rms_geometry_line(x)}")
             print(f"[measure] {kname} ({name}, {label} call) on main-path "
                   f"inputs {shape}: kernel {k_ms:.4f} ms, plain {p_ms:.4f} "
                   f"ms, {lib_name} {l_ms:.4f} ms (library vs plain "
-                  f"max_abs_err {lib_err:.3g}); bound {bound:.4f} ms "
+                  f"max_abs_err {lib_err:.3g}); after a clean flush kernel "
+                  f"{k_cl:.4f}, library {l_cl:.4f} ms; bound {bound:.4f} ms "
                   f"({nbytes} bytes -> {t_bytes:.4f} ms, {n_ops} ops -> "
-                  f"{t_ops:.4f} ms); max_abs_err {err:.3g}")
-            if label == "max":
-                out[kname] = dict(ms=k_ms, plain_ms=p_ms, library_ms=l_ms,
-                                  bound_ms=float(bound),
-                                  bound_by="bytes" if t_bytes >= t_ops
-                                  else "operations")
+                  f"{t_ops:.4f} ms); max_abs_err {err:.3g}{old_note}")
+            rows[f"{name}: {label} {shape}"] = row
+        top = next(v for k, v in rows.items() if ": max " in k)
+        out[kname] = dict({k: v for k, v in top.items() if "clean" not in k},
+                          shapes=rows)
     return out
 
 
@@ -1781,8 +2010,8 @@ PROFILE_PARTS = (
     ("rmsnorm", ("rmsnorm",)),
     ("moe_gmm", ("moe_gmm",)),
     ("ssd_scan", ("ssd_scan", "ssd_cb")),
-    ("rao_scatter_add", ("scatter_add_kernel", "widen_kernel",
-                         "narrow_kernel")),
+    ("rao_scatter_add", ("rao_scatter", "scatter_add_kernel",
+                         "widen_kernel", "narrow_kernel")),
     ("cuBLAS gemm", ("gemm", "xmma", "cutlass", "nvjet")),
 )
 
@@ -1857,7 +2086,8 @@ def main(argv=None):
     errs = {name: [] for name in (*KERNELS, "moe_gmm_wmma",
                                   "paged_prefill_attention_cuda_core",
                                   "paged_attention_unsplit",
-                                  "ssd_scan_cuda_core")}
+                                  "ssd_scan_cuda_core", "rao_scatter_add_old",
+                                  "rmsnorm_old")}
     phase_kernels(errs)
     if args.quick:
         return 0
@@ -1883,15 +2113,18 @@ def main(argv=None):
         phase_profile(srv)
     del srv, recs
     name, by_path[name], recs, srv = phase_serve("granite one-shot", card)
-    phase_measure_oneshot(recs, errs, name)
-    meas["moe_gmm"]["shapes"].update(phase_measure_gmm_oneshot(recs, errs))
+    for kname, rows in phase_measure_oneshot(recs, errs, name).items():
+        meas[kname]["shapes"].update(rows["shapes"])
+    for kname, rows in phase_measure_moe_oneshot(recs, errs).items():
+        meas[kname]["shapes"].update(rows)
     if args.profile:
         phase_profile(srv)
     del srv, recs
     torch.cuda.empty_cache()
     name, by_path[name], recs, srv = phase_serve("zamba2 dense", card)
     meas.update(phase_measure_ssd(recs, errs))
-    phase_measure_oneshot(recs, errs, name)
+    for kname, rows in phase_measure_oneshot(recs, errs, name).items():
+        meas[kname]["shapes"].update(rows["shapes"])
     if args.profile:
         phase_profile(srv)
     del srv, recs
@@ -1930,6 +2163,16 @@ def main(argv=None):
     ssd = next(k for k in record["kernels"] if k["name"] == "ssd_scan")
     ssd["launches_mma"] = sum(n["ssd_scan_mma"] for n in by_path.values())
     ssd["cuda_core_max_abs_err"] = max(errs["ssd_scan_cuda_core"])
+    # every bf16 rao_scatter_add call of the main path is the on-chip
+    # kernel's and every rmsnorm call the row-spread kernel's (phase 5);
+    # the kernels they replaced are timed beside them (old_source)
+    rao = next(k for k in record["kernels"] if k["name"] == "rao_scatter_add")
+    rao["launches_onchip"] = sum(n["rao_scatter_add_onchip"]
+                                 for n in by_path.values())
+    rao["old_max_abs_err"] = max(errs["rao_scatter_add_old"])
+    rms = next(k for k in record["kernels"] if k["name"] == "rmsnorm")
+    rms["launches_row"] = sum(n["rmsnorm_row"] for n in by_path.values())
+    rms["old_max_abs_err"] = max(errs["rmsnorm_old"])
     print(f"[total] wall {time.perf_counter() - t_all:.1f} s")
     print(json.dumps(record))
     print(json.dumps({"ok": True, "device": {

@@ -6,10 +6,12 @@ Every kernel source (``csrc/paged_attention.cu`` (f32),
 ``csrc/paged_prefill_attention_mma.cu`` (bf16, tensor cores),
 ``csrc/moe_gmm.cu`` (f32, and bf16
 shapes TMA does not take), ``csrc/moe_gmm_wgmma.cu`` (bf16, TMA and
-wgmma), ``csrc/rao_scatter.cu``, ``csrc/flash_attention.cu`` (f32),
-``csrc/flash_attention_mma.cu`` (bf16, tensor cores), ``csrc/rmsnorm.cu``,
-``csrc/ssd_scan.cu`` (CUDA cores), ``csrc/ssd_scan_mma.cu`` (tensor
-cores)) compiles in its own ``nvcc``
+wgmma), ``csrc/rao_scatter.cu`` (f32), ``csrc/rao_scatter_onchip.cu``
+(bf16, one launch, sums on chip), ``csrc/flash_attention.cu`` (f32),
+``csrc/flash_attention_mma.cu`` (bf16, tensor cores), ``csrc/rmsnorm.cu``
+(one warp a row; comparison only), ``csrc/rmsnorm_row.cu`` (a row
+spread over a CTA), ``csrc/ssd_scan.cu`` (CUDA cores),
+``csrc/ssd_scan_mma.cu`` (tensor cores)) compiles in its own ``nvcc``
 process, all started together, and one more ``nvcc`` call links the objects into a
 single shared library with a plain C interface, loaded with ``ctypes`` —
 no PyTorch headers, so the build takes seconds, not minutes.  The library
@@ -36,9 +38,9 @@ CSRC = Path(__file__).resolve().parent / "csrc"
 SOURCES = ("paged_attention.cu", "paged_attention_split.cu",
            "paged_prefill_attention.cu",
            "paged_prefill_attention_mma.cu", "moe_gmm.cu",
-           "moe_gmm_wgmma.cu", "rao_scatter.cu", "flash_attention.cu",
-           "flash_attention_mma.cu", "rmsnorm.cu", "ssd_scan.cu",
-           "ssd_scan_mma.cu")
+           "moe_gmm_wgmma.cu", "rao_scatter.cu", "rao_scatter_onchip.cu",
+           "flash_attention.cu", "flash_attention_mma.cu", "rmsnorm.cu",
+           "rmsnorm_row.cu", "ssd_scan.cu", "ssd_scan_mma.cu")
 HEADERS = ("paged_common.cuh",)
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-Xcompiler", "-fPIC", "-lineinfo", "-Xptxas", "-v")
@@ -146,6 +148,10 @@ def _bind(lib: ctypes.CDLL) -> ctypes.CDLL:
     lib.rao_scatter_add_launch.argtypes = [i, p, p, p, p, i, i, i, p]
     #                          dtype table idx vals scratch N M D stream
     lib.rao_scatter_add_launch.restype = i
+    lib.rao_scatter_add_onchip_launch.argtypes = [
+        p, p, p, i, ctypes.c_longlong, i, i, i, i, i, i, p]
+    #   table idx vals N M D vec cols rows split threads stream
+    lib.rao_scatter_add_onchip_launch.restype = i
     for name in ("flash_attention_launch", "flash_attention_mma_launch"):
         fn = getattr(lib, name)               # f32 / bf16
         fn.argtypes = [p, p, p, p,            # q k v out
@@ -155,6 +161,10 @@ def _bind(lib: ctypes.CDLL) -> ctypes.CDLL:
     lib.rmsnorm_launch.argtypes = [i, p, p, p, ctypes.c_longlong, i, f, p]
     #                              dtype x w out N D eps stream
     lib.rmsnorm_launch.restype = i
+    lib.rmsnorm_row_launch.argtypes = [i, p, p, p, ctypes.c_longlong, i,
+                                       i, i, i, i, f, p]
+    #               dtype x w out N D vec per tpr rows eps stream
+    lib.rmsnorm_row_launch.restype = i
     lib.ssd_scan_launch.argtypes = [i, p, p, p, p, p, p, p,
                                     i, i, i, i, i, i, p]
     #                  dtype x Bm Cm dt A y state B L h hd S chunk stream

@@ -18,9 +18,13 @@ count), so a run can show that its main path went through the kernels;
 (``FLASH_KERNELS``), ``LAUNCHES["paged_prefill_attention_mma"]`` those of
 ``paged_prefill_attention`` (``PAGED_PREFILL_KERNELS``), and
 ``LAUNCHES["moe_gmm_wgmma"]`` the launches of ``moe_gmm`` that take the
-TMA / wgmma kernel (``moe_gmm_kernel``), and ``LAUNCHES["ssd_scan_mma"]``
+TMA / wgmma kernel (``moe_gmm_kernel``), ``LAUNCHES["ssd_scan_mma"]``
 the calls of ``ssd_scan`` on the tensor-core kernel (all of them: two
-launches each); ``reset_launches()`` zeroes it.
+launches each), ``LAUNCHES["rao_scatter_add_onchip"]`` the bf16 calls of
+``rao_scatter_add``, which take the one-launch on-chip kernel
+(``RAO_KERNELS``), and ``LAUNCHES["rmsnorm_row"]`` the calls of
+``rmsnorm`` (all of them) on the row-spread kernel; ``reset_launches()``
+zeroes it.
 """
 from __future__ import annotations
 
@@ -37,9 +41,10 @@ LAUNCHES: Dict[str, int] = {"paged_attention": 0,
                             "paged_prefill_attention": 0,
                             "paged_prefill_attention_mma": 0,
                             "moe_gmm": 0, "moe_gmm_wgmma": 0,
-                            "rao_scatter_add": 0,
+                            "rao_scatter_add": 0, "rao_scatter_add_onchip": 0,
                             "flash_attention": 0, "flash_attention_mma": 0,
-                            "rmsnorm": 0, "ssd_scan": 0, "ssd_scan_mma": 0}
+                            "rmsnorm": 0, "rmsnorm_row": 0,
+                            "ssd_scan": 0, "ssd_scan_mma": 0}
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 MAX_HEAD_DIM = 256
 MAX_GROUP = 32          # query heads per kv head: one CTA's softmax rows
@@ -65,6 +70,32 @@ FLASH_KERNELS = {torch.bfloat16: "flash_attention_mma_launch",
 # CUDA cores
 PAGED_PREFILL_KERNELS = {torch.bfloat16: "paged_prefill_attention_mma_launch",
                          torch.float32: "paged_prefill_attention_launch"}
+# rao_scatter_add's kernel per dtype: bf16 one launch with the f32 sums in
+# shared memory (csrc/rao_scatter_onchip.cu), f32 atomics straight into
+# the table (csrc/rao_scatter.cu), which need no scratch either
+RAO_KERNELS = {torch.bfloat16: "rao_scatter_add_onchip_launch",
+               torch.float32: "rao_scatter_add_launch"}
+# the on-chip rao_scatter_add: 32-column tiles (4 lanes of 16-byte loads,
+# or 32 of one column) and an f32 slab of 32 floats a row a CTA; CTAs of
+# 256 threads, 3 an SM, for calls of fewer than RAO_WIDE_M updates, else of
+# 512, 2 an SM; at most 8 CTAs a cluster, and a grid of about 1.5 CTAs an
+# SM: on an H100 larger grids of such CTAs did not all fit at once
+# (clusters of 8) and paid more merge traffic
+RAO_COLS, RAO_MAX_SPLIT, RAO_WIDE_M = 32, 8, 2048
+RAO_GRID_CTAS = H100_SMS * 3 // 2
+
+
+def rao_slab_bytes(threads: int) -> int:
+    """Shared memory a CTA of the on-chip rao_scatter_add may give its
+    slab: an even share of an SM among the CTAs its thread count lets
+    share it (3 of 256 threads, 2 of 512)."""
+    return SM_SMEM // (3 if threads == 256 else 2) - SM_SMEM_RESERVED
+
+
+# the row-spread rmsnorm (csrc/rmsnorm_row.cu): at most 1024 threads a
+# row, each holding 1 or 2 units (16-byte loads, or elements) of x and w;
+# rows of at most 32 units share 256-thread CTAs
+RMS_MAX_THREADS, RMS_CTA_THREADS, RMS_MAX_PER_THREAD = 1024, 256, 2
 
 
 def moe_gmm_kernel(xe, w) -> str:
@@ -288,6 +319,35 @@ def moe_gmm(xe, w):
     return out
 
 
+def rao_scatter_onchip_geometry(N, M, D, aligned=True) -> Dict[str, object]:
+    """The launch of the bf16 on-chip ``rao_scatter_add`` kernel
+    (csrc/rao_scatter_onchip.cu) for a table of N rows by D columns and M
+    updates: ``vec`` columns a lane (8, 16-byte loads, where D % 8 == 0
+    and ``aligned`` says the table and vals are 16-byte aligned; else 1),
+    ``threads`` a CTA (256 below ``RAO_WIDE_M`` updates, else 512),
+    ``cols`` columns a tile, ``rows`` rows a tile (as many as one CTA's
+    f32 slab of ``rao_slab_bytes`` holds, evened out over the row tiles),
+    ``split`` CTAs a cluster sharing the M updates (as many as keep the
+    grid within ``RAO_GRID_CTAS``, at most 8, and no more than gives each
+    group of lanes one update), ``per_cta`` updates a CTA; ``grid``
+    (split x row tiles, column tiles) of CTAs with ``smem`` bytes of
+    shared memory each, and ``ctas`` in all.  Any N, M, D > 0 take one
+    launch."""
+    vec = 8 if aligned and D % 8 == 0 else 1
+    threads = 256 if M < RAO_WIDE_M else 512
+    cols = RAO_COLS
+    groups = threads // (cols // vec)
+    row_tiles = -(-N // min(N, rao_slab_bytes(threads) // (4 * cols)))
+    rows = -(-N // row_tiles)
+    col_tiles = -(-D // cols)
+    tiles = row_tiles * col_tiles
+    split = max(1, min(RAO_MAX_SPLIT, RAO_GRID_CTAS // tiles,
+                       -(-M // groups)))
+    return dict(vec=vec, threads=threads, cols=cols, rows=rows, split=split,
+                per_cta=-(-M // split), grid=(split * row_tiles, col_tiles),
+                smem=4 * rows * cols, ctas=split * tiles)
+
+
 def rao_scatter_add(table, idx, vals):
     """RAO fetch-and-add over rows: ``table`` (N, D) plus ``vals`` (M, D)
     at rows ``idx`` (M,) int32, duplicates summed, in ``table.dtype``
@@ -295,7 +355,12 @@ def rao_scatter_add(table, idx, vals):
     table: on the card it is ``table`` itself, updated in place (as the
     TPU kernel aliases its table); on the CPU a new tensor.  Row ids
     outside [0, N) are dropped on the card.  See
-    ``kernels.ref.rao_scatter_add``."""
+    ``kernels.ref.rao_scatter_add``.
+
+    On the card the dtype picks the kernel (``RAO_KERNELS``): bf16 the
+    one-launch on-chip kernel (``rao_scatter_onchip_geometry``; counted
+    also in ``LAUNCHES["rao_scatter_add_onchip"]``), f32 the atomic one.
+    Neither allocates anything."""
     if table.device.type == "cpu":
         return ref.rao_scatter_add(table, idx, vals)
     if table.device.type != "cuda":
@@ -304,7 +369,7 @@ def rao_scatter_add(table, idx, vals):
         if t.device != table.device:
             raise ValueError(f"rao_scatter_add: {name} on {t.device}, "
                              f"table on {table.device}")
-    if table.dtype not in _DTYPES or vals.dtype != table.dtype:
+    if table.dtype not in RAO_KERNELS or vals.dtype != table.dtype:
         raise TypeError(f"rao_scatter_add: dtypes {table.dtype} / "
                         f"{vals.dtype} unsupported (both float32 or both "
                         f"bfloat16)")
@@ -325,17 +390,27 @@ def rao_scatter_add(table, idx, vals):
     M = idx.shape[0]
     if 0 in (N, M, D):
         return table
-    # a bf16 table accumulates in an f32 scratch and is rounded once
-    scratch = torch.empty((N, D), dtype=torch.float32, device=table.device) \
-        if table.dtype == torch.bfloat16 else None
-    rc = build.load().rao_scatter_add_launch(
-        _DTYPES[table.dtype], table.data_ptr(), idx.data_ptr(),
-        vals.data_ptr(), None if scratch is None else scratch.data_ptr(),
-        N, M, D, _stream_ptr(table.device))
+    kernel = RAO_KERNELS[table.dtype]
+    onchip = kernel == "rao_scatter_add_onchip_launch"
+    stream = _stream_ptr(table.device)
+    lib = build.load()
+    if onchip:
+        geo = rao_scatter_onchip_geometry(
+            N, M, D, table.data_ptr() % 16 == 0 and vals.data_ptr() % 16 == 0)
+        rc = lib.rao_scatter_add_onchip_launch(
+            table.data_ptr(), idx.data_ptr(), vals.data_ptr(), N, M, D,
+            geo["vec"], geo["cols"], geo["rows"], geo["split"],
+            geo["threads"], stream)
+    else:
+        rc = lib.rao_scatter_add_launch(
+            _DTYPES[table.dtype], table.data_ptr(), idx.data_ptr(),
+            vals.data_ptr(), None, N, M, D, stream)
     if rc:
-        raise RuntimeError(f"rao_scatter_add kernel launch failed: CUDA "
-                           f"error {rc}")
+        raise RuntimeError(f"rao_scatter_add kernel launch failed "
+                           f"({kernel}): CUDA error {rc}")
     LAUNCHES["rao_scatter_add"] += 1
+    if onchip:
+        LAUNCHES["rao_scatter_add_onchip"] += 1
     return table
 
 
@@ -395,11 +470,38 @@ def flash_attention(q, k, v, *, causal: bool = True, window: int = 0):
     return out
 
 
+def rmsnorm_row_geometry(N, D, dtype, aligned=True) -> Dict[str, int]:
+    """The launch of the row-spread ``rmsnorm`` kernel
+    (csrc/rmsnorm_row.cu) for N rows of D elements of ``dtype``: ``vec``
+    elements a unit (16 bytes' worth where D allows it and ``aligned``
+    says x, w and out are 16-byte aligned; else 1), ``units`` a row,
+    ``per_thread`` units of x (and of w) a thread holds in registers (1
+    or 2; 0 for rows of more than 2 x 1024 units, which loop),
+    ``threads_per_row`` (a power of two up to 32 for short rows, else a
+    multiple of 32 and one row a CTA), ``rows_per_cta``, ``threads`` a
+    CTA and the ``grid``."""
+    v = 16 // (2 if dtype == torch.bfloat16 else 4)
+    vec = v if aligned and D % v == 0 else 1
+    units = D // vec
+    per = next((p for p in range(1, RMS_MAX_PER_THREAD + 1)
+                if units <= p * RMS_MAX_THREADS), 0)
+    lanes = -(-units // per) if per else RMS_MAX_THREADS
+    if lanes <= 32:
+        tpr = 1 << (lanes - 1).bit_length()
+        rows = RMS_CTA_THREADS // tpr
+    else:
+        tpr, rows = 32 * -(-lanes // 32), 1
+    return dict(vec=vec, units=units, per_thread=per, threads_per_row=tpr,
+                rows_per_cta=rows, threads=tpr * rows, grid=-(-N // rows))
+
+
 def rmsnorm(x, w, eps: float = 1e-5):
     """RMSNorm over the last dim: x (..., D), w (D,) of x's dtype (float32
     or bfloat16) -> x.shape, ``x * rsqrt(mean(x^2) + eps) * (1 + w)`` in
     f32 rounded once; the leading dims flatten into rows.  See
-    ``kernels.ref.rmsnorm``."""
+    ``kernels.ref.rmsnorm``.  On the card every call takes the row-spread
+    kernel (``rmsnorm_row_geometry``), counted in ``LAUNCHES["rmsnorm"]``
+    and ``LAUNCHES["rmsnorm_row"]``."""
     if x.device.type == "cpu":
         return ref.rmsnorm(x, w, eps)
     if x.device.type != "cuda":
@@ -418,12 +520,18 @@ def rmsnorm(x, w, eps: float = 1e-5):
     out = torch.empty_like(x)
     if x.numel() == 0:
         return out
-    rc = build.load().rmsnorm_launch(
-        _DTYPES[x.dtype], x.data_ptr(), w.data_ptr(), out.data_ptr(),
-        x.numel() // D, D, float(eps), _stream_ptr(x.device))
+    N = x.numel() // D
+    geo = rmsnorm_row_geometry(
+        N, D, x.dtype, all(t.data_ptr() % 16 == 0 for t in (x, w, out)))
+    rc = build.load().rmsnorm_row_launch(
+        _DTYPES[x.dtype], x.data_ptr(), w.data_ptr(), out.data_ptr(), N, D,
+        geo["vec"], geo["per_thread"], geo["threads_per_row"],
+        geo["rows_per_cta"], float(eps), _stream_ptr(x.device))
     if rc:
-        raise RuntimeError(f"rmsnorm kernel launch failed: CUDA error {rc}")
+        raise RuntimeError(f"rmsnorm kernel launch failed "
+                           f"(rmsnorm_row_launch): CUDA error {rc}")
     LAUNCHES["rmsnorm"] += 1
+    LAUNCHES["rmsnorm_row"] += 1
     return out
 
 

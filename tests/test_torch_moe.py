@@ -255,6 +255,174 @@ def test_wrapper_refuses_devices_without_a_kernel(which):
         getattr(ops, which)(*args)
 
 
+def _check_rao_geometry(N, M, D, geo):
+    """The limits of one launch of csrc/rao_scatter_onchip.cu: a CTA's
+    threads and shared memory, the cluster size, the grid's bounds, and
+    every row, column and update covered."""
+    lanes = geo["cols"] // geo["vec"]
+    row_tiles, col_tiles = geo["grid"][0] // geo["split"], geo["grid"][1]
+    assert geo["grid"][0] % geo["split"] == 0
+    assert geo["threads"] == (256 if M < ops.RAO_WIDE_M else 512)
+    assert geo["threads"] % lanes == 0
+    assert lanes & (lanes - 1) == 0 and geo["cols"] % 32 == 0
+    assert 1 <= geo["split"] <= 8
+    assert geo["smem"] == 4 * geo["rows"] * geo["cols"]
+    assert geo["smem"] <= ops.rao_slab_bytes(geo["threads"]) <= \
+        ops.SMEM_LIMIT
+    per_sm = 3 if geo["threads"] == 256 else 2     # by registers, threads
+    assert per_sm * (geo["smem"] + ops.SM_SMEM_RESERVED) <= ops.SM_SMEM
+    assert row_tiles * geo["rows"] >= N > (row_tiles - 1) * geo["rows"]
+    assert col_tiles * geo["cols"] >= D > (col_tiles - 1) * geo["cols"]
+    assert col_tiles <= 65535 and geo["grid"][0] < 2 ** 31
+    assert geo["split"] * geo["per_cta"] >= M
+    assert geo["ctas"] == geo["grid"][0] * geo["grid"][1]
+    assert geo["vec"] == (8 if D % 8 == 0 else 1)
+
+
+@pytest.mark.parametrize("N,M,threads", [
+    (9, 320, 256),            # decode: 8 tokens and the pad row
+    (513, 20480, 512),        # the largest dropless chunk tick
+    (837, 8360, 512)],        # the one-shot capacity group call (C 209)
+    ids=["decode", "max-tick", "oneshot-group"])
+def test_rao_onchip_geometry_at_the_main_path(N, M, threads):
+    """granite's three combine shapes (D 1536) take one launch of the
+    on-chip kernel: 16-byte loads, every row in one slab (600 rows at
+    256 threads, 904 at 512), clusters of 4, 192 CTAs: about 1.5 an SM."""
+    geo = ops.rao_scatter_onchip_geometry(N, M, 1536)
+    _check_rao_geometry(N, M, 1536, geo)
+    assert (geo["vec"], geo["threads"], geo["cols"], geo["rows"],
+            geo["split"], geo["ctas"]) == (8, threads, 32, N, 4, 192)
+    assert geo["ctas"] <= ops.RAO_GRID_CTAS
+
+
+@pytest.mark.parametrize("N", [1, 600, 601, 904, 905, 5000, 100_000,
+                               1 << 22])
+@pytest.mark.parametrize("M,D", [(1, 1536), (20481, 1536), (7, 130),
+                                 (3000, 8), (50, 70000)])
+def test_rao_onchip_geometry_fits_any_shape(N, M, D):
+    """Any N (far above 837: tiled rows), M (not a multiple of any block)
+    and D (odd: a column a lane) fits one launch."""
+    geo = ops.rao_scatter_onchip_geometry(N, M, D)
+    _check_rao_geometry(N, M, D, geo)
+    assert ops.rao_scatter_onchip_geometry(N, M, D, aligned=False)["vec"] \
+        == 1
+
+
+def test_rao_kernel_table_and_binding():
+    """bf16 takes the on-chip kernel, f32 the atomic one; both sources are
+    built; the on-chip launcher takes three pointers, N, M (64-bit), D,
+    vec, cols, rows, split, threads and the stream."""
+    assert ops.RAO_KERNELS == {
+        torch.bfloat16: "rao_scatter_add_onchip_launch",
+        torch.float32: "rao_scatter_add_launch"}
+    for src in ("rao_scatter.cu", "rao_scatter_onchip.cu"):
+        assert src in ops.build.SOURCES and (ops.build.CSRC / src).is_file()
+
+    class Lib:
+        def __getattr__(self, name):
+            fn = type("Fn", (), {})()
+            setattr(self, name, fn)
+            return fn
+    lib = ops.build._bind(Lib())
+    c = ops.build.ctypes
+    p, i = c.c_void_p, c.c_int
+    assert lib.rao_scatter_add_onchip_launch.argtypes == \
+        [p, p, p, i, c.c_longlong] + [i] * 6 + [p]
+    assert lib.rao_scatter_add_onchip_launch.restype == i
+
+
+def _rao_operands(case, N=9, M=20, D=16):
+    rng = np.random.RandomState(5)
+    dtype = torch.float32 if case == "f32" else torch.bfloat16
+    D = 13 if case == "bf16 D 13" else D
+    table = _t(rng.randn(N, D).astype(np.float32)).to(dtype)
+    idx = _t(rng.randint(0, N, size=M).astype(np.int32))
+    vals = _t(rng.randn(M, D).astype(np.float32)).to(dtype)
+    if case == "bf16 2-byte offset":    # contiguous, 2 bytes off alignment
+        vals = torch.zeros(vals.numel() + 1, dtype=dtype)[1:] \
+            .view(vals.shape).copy_(vals)
+    return table, idx, vals
+
+
+def _no_allocation(monkeypatch):
+    """Make every tensor allocation the wrapper could reach raise."""
+    def boom(*a, **kw):
+        raise AssertionError("rao_scatter_add allocated a tensor")
+    for name in ("empty", "zeros", "empty_like", "zeros_like", "full",
+                 "ones"):
+        monkeypatch.setattr(torch, name, boom)
+    for name in ("new_empty", "new_zeros", "new_full"):
+        monkeypatch.setattr(torch.Tensor, name, boom)
+
+
+@pytest.mark.parametrize("case", ["bf16 aligned", "bf16 D 13",
+                                  "bf16 2-byte offset", "f32"])
+def test_rao_wrapper_is_one_launch_without_scratch(monkeypatch, case):
+    """On the card a bf16 call is one launch of the on-chip kernel with the
+    geometry ``rao_scatter_onchip_geometry`` computes (a column a lane
+    where D or a base rules out 16-byte loads), counted on
+    ``rao_scatter_add`` and ``rao_scatter_add_onchip``; f32 is one launch
+    of the atomic kernel with no scratch.  Neither allocates."""
+    launched = _recording_library(monkeypatch)
+    table, idx, vals = _rao_operands(case)
+    N, D = table.shape
+    M = idx.shape[0]
+    before = dict(ops.LAUNCHES)
+    _no_allocation(monkeypatch)
+    got = ops.rao_scatter_add(*(t.as_subclass(_OnCard)
+                                for t in (table, idx, vals)))
+    assert got.data_ptr() == table.data_ptr()
+    ptrs = (table.data_ptr(), idx.data_ptr(), vals.data_ptr())
+    onchip = case != "f32"
+    if onchip:
+        geo = ops.rao_scatter_onchip_geometry(
+            N, M, D, case == "bf16 aligned")
+        assert geo["vec"] == (8 if case == "bf16 aligned" else 1)
+        args = ptrs + (N, M, D, geo["vec"], geo["cols"], geo["rows"],
+                       geo["split"], geo["threads"], 0)
+        assert launched == [("rao_scatter_add_onchip_launch", args)]
+    else:
+        assert launched == [("rao_scatter_add_launch",
+                             (0,) + ptrs + (None, N, M, D, 0))]
+    assert ops.LAUNCHES["rao_scatter_add"] == before["rao_scatter_add"] + 1
+    assert ops.LAUNCHES["rao_scatter_add_onchip"] == \
+        before["rao_scatter_add_onchip"] + onchip
+
+
+@pytest.mark.parametrize("where", ["cpu", "zero M on the card",
+                                   "zero N on the card"])
+def test_rao_wrapper_launches_nothing_on_cpu_or_empty(monkeypatch, where):
+    """A CPU tensor runs the plain version; an empty table or no updates
+    return the table itself; none launches or counts."""
+    launched = _recording_library(monkeypatch)
+    table, idx, vals = _rao_operands("bf16 aligned")
+    if where == "zero M on the card":
+        idx, vals = idx[:0], vals[:0]
+    elif where == "zero N on the card":
+        table = table[:0]
+    before = dict(ops.LAUNCHES)
+    if where == "cpu":
+        got = ops.rao_scatter_add(table, idx, vals)
+        torch.testing.assert_close(got, ref.rao_scatter_add(table, idx, vals))
+    else:
+        args = [t.as_subclass(_OnCard) for t in (table, idx, vals)]
+        assert ops.rao_scatter_add(*args) is args[0]
+    assert launched == [] and ops.LAUNCHES == before
+
+
+def test_rao_launch_error_raises_without_fallback(monkeypatch):
+    """A failed launch of the on-chip kernel raises with its CUDA error;
+    nothing retries on the atomic kernel and nothing is counted."""
+    launched = _recording_library(monkeypatch, rc=700)
+    args = [t.as_subclass(_OnCard) for t in _rao_operands("bf16 aligned")]
+    before = dict(ops.LAUNCHES)
+    with pytest.raises(RuntimeError,
+                       match="rao_scatter_add_onchip_launch.*700"):
+        ops.rao_scatter_add(*args)
+    assert [name for name, _ in launched] == ["rao_scatter_add_onchip_launch"]
+    assert ops.LAUNCHES == before
+
+
 # ------------------------------------------------------------ moe_apply
 @pytest.mark.parametrize("routing", ["dropless", "capacity"])
 @pytest.mark.parametrize("G", [1, 2])
@@ -489,18 +657,48 @@ def test_moe_gmm_kernel_matches_plain_on_card(cuda, E, C, D, F, dtype, tol):
 @pytest.mark.parametrize("dtype,tol", [(torch.float32, 1e-4),
                                        (torch.bfloat16, 2e-2)],
                          ids=["f32", "bf16"])
-@pytest.mark.parametrize("central", [False, True], ids=["dups", "central"])
-def test_rao_kernel_matches_plain_on_card(cuda, central, dtype, tol):
+@pytest.mark.parametrize("case", ["dups", "central", "pad-row", "large-n",
+                                  "out-of-range", "decode", "max-tick",
+                                  "odd-d", "large-n-small-m"])
+def test_rao_kernel_matches_plain_on_card(cuda, case, dtype, tol):
+    """Random duplicates (N 65, D 96, M 2048); CENTRAL (every update on row
+    0); the pad row (80% of the ids on the last row, as dropless routing
+    pads); N 5000 (the on-chip kernel's rows in several tiles); ids
+    outside [0, N) (dropped: held against the plain version of the ids in
+    range); granite's decode (9, 320) and largest tick (513, 20480) at D
+    1536; D 130 (a column a lane); N 5000 with M 1000 (row tiles with
+    CTAs of 256 threads; the others with M >= 2048 take 512).  bf16
+    takes the on-chip kernel, f32 the atomic one.  After the
+    first two cases the table and vals are multiples of 1/4 in [-2, 2],
+    exact in bf16, whose f32 sums are exact in any order, so a hot row's
+    thousands of adds are held to the tolerance whatever order the
+    atomics land in."""
     rng = np.random.RandomState(9)
-    N, D, M = 65, 96, 2048
-    idx = np.zeros(M, np.int32) if central \
-        else rng.randint(0, N, size=M).astype(np.int32)
-    table = _t(rng.randn(N, D).astype(np.float32)).to(cuda, dtype)
-    vals = _t(rng.randn(M, D).astype(np.float32)).to(cuda, dtype)
+    N, D, M = {"large-n": (5000, 96, 3000), "decode": (9, 1536, 320),
+               "max-tick": (513, 1536, 20480), "odd-d": (65, 130, 3000),
+               "large-n-small-m": (5000, 96, 1000)}.get(case, (65, 96, 2048))
+    idx = rng.randint(0, N, size=M).astype(np.int32)
+    if case == "central":
+        idx[:] = 0
+    elif case in ("pad-row", "max-tick"):
+        idx[rng.rand(M) < 0.8] = N - 1
+    elif case == "out-of-range":
+        idx[::3] = rng.choice([-1, -7, N, N + 5], size=idx[::3].shape)
+    keep = (idx >= 0) & (idx < N)
+    if case in ("dups", "central"):
+        table, vals = rng.randn(N, D), rng.randn(M, D)
+    else:
+        table, vals = (rng.randint(-8, 9, size=(n, D)) / 4 for n in (N, M))
+    table, vals = (_t(a.astype(np.float32)).to(cuda, dtype)
+                   for a in (table, vals))
     idx_d = _t(idx).to(cuda)
-    exp = ref.rao_scatter_add(table, idx_d, vals)
-    before = ops.LAUNCHES["rao_scatter_add"]
+    exp = ref.rao_scatter_add(table, _t(idx[keep]).to(cuda),
+                              vals[torch.from_numpy(keep).to(cuda)])
+    before = dict(ops.LAUNCHES)
     got = ops.rao_scatter_add(table, idx_d, vals)
     torch.cuda.synchronize()
-    assert got is table and ops.LAUNCHES["rao_scatter_add"] == before + 1
+    assert got is table
+    assert ops.LAUNCHES["rao_scatter_add"] == before["rao_scatter_add"] + 1
+    assert ops.LAUNCHES["rao_scatter_add_onchip"] == \
+        before["rao_scatter_add_onchip"] + (dtype == torch.bfloat16)
     torch.testing.assert_close(got.float(), exp.float(), atol=tol, rtol=tol)

@@ -278,6 +278,112 @@ def test_wrapper_refuses_devices_without_a_kernel(which):
         getattr(ops, which)(*args)
 
 
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32],
+                         ids=["bf16", "f32"])
+@pytest.mark.parametrize("D", [1536, 3584, 5120, 7168, 64, 130, 1, 30, 4097,
+                               20000, 100_000])
+@pytest.mark.parametrize("N", [1, 8, 836, 1200])
+def test_rmsnorm_row_geometry_fits_every_width(N, D, dtype):
+    """csrc/rmsnorm_row.cu's launch rules hold for any N and D (odd D: an
+    element a unit): at most 1024 threads a CTA, a multiple of 32; a short
+    row's lanes a power of two within a warp, a wide row a CTA of its
+    own; every unit of a row held by one thread in at most two loads,
+    except past 2 x 1024 units, where threads loop; every row covered."""
+    geo = ops.rmsnorm_row_geometry(N, D, dtype)
+    tpr, rows, per = (geo[k] for k in ("threads_per_row", "rows_per_cta",
+                                       "per_thread"))
+    assert geo["threads"] == tpr * rows <= 1024 and geo["threads"] % 32 == 0
+    if tpr <= 32:
+        assert tpr & (tpr - 1) == 0
+    else:
+        assert tpr % 32 == 0 and rows == 1
+    assert geo["units"] * geo["vec"] == D
+    assert geo["vec"] == (1 if D % (8 if dtype == torch.bfloat16 else 4)
+                          else 16 // (2 if dtype == torch.bfloat16 else 4))
+    if per:
+        assert tpr * per >= geo["units"] and (per == 1 or geo["units"] > 1024)
+    else:
+        assert geo["units"] > 2048 and tpr == 1024
+    assert geo["grid"] * rows >= N > (geo["grid"] - 1) * rows
+    assert ops.rmsnorm_row_geometry(N, D, dtype, aligned=False)["vec"] == 1
+
+
+@pytest.mark.parametrize("D", [1536, 3584, 5120, 7168])
+def test_rmsnorm_row_geometry_at_the_served_widths(D):
+    """At the served models' widths in bf16 every thread issues one
+    16-byte load of x and one of w, and a row is a CTA of D / 8 threads
+    (640 at mistral's 5120, 896 at zamba2's 7168)."""
+    geo = ops.rmsnorm_row_geometry(8, D, torch.bfloat16)
+    assert (geo["vec"], geo["per_thread"], geo["threads_per_row"],
+            geo["rows_per_cta"], geo["grid"]) == (8, 1, D // 8, 1, 8)
+
+
+def _rms_library(monkeypatch, rc=0):
+    launched = []
+
+    class Lib:
+        def __getattr__(self, name):
+            return lambda *args: launched.append((name, args)) or rc
+    monkeypatch.setattr(ops.build, "load", Lib)
+    monkeypatch.setattr(ops, "_stream_ptr", lambda dev: 0)
+    return launched
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32],
+                         ids=["bf16", "f32"])
+@pytest.mark.parametrize("shape", [(2, 3, 64), (5, 130)])
+def test_rmsnorm_wrapper_takes_the_row_kernel(monkeypatch, shape, dtype):
+    """On the card every call is one launch of the row-spread kernel with
+    the geometry ``rmsnorm_row_geometry`` computes (leading dims
+    flattened), counted on ``rmsnorm`` and ``rmsnorm_row``; the old
+    one-warp kernel is never called."""
+    launched = _rms_library(monkeypatch)
+    rng = np.random.RandomState(1)
+    D = shape[-1]
+    x = _t(rng.randn(*shape).astype(np.float32)).to(dtype)
+    w = _t(rng.randn(D).astype(np.float32)).to(dtype)
+    before = dict(ops.LAUNCHES)
+    out = ops.rmsnorm(x.as_subclass(_OnCard), w.as_subclass(_OnCard), 1e-6)
+    assert out.shape == x.shape and out.dtype == dtype
+    N = x.numel() // D
+    geo = ops.rmsnorm_row_geometry(N, D, dtype)
+    args = (ops._DTYPES[dtype], x.data_ptr(), w.data_ptr(), out.data_ptr(),
+            N, D, geo["vec"], geo["per_thread"], geo["threads_per_row"],
+            geo["rows_per_cta"], 1e-6, 0)
+    assert launched == [("rmsnorm_row_launch", args)]
+    for name in ("rmsnorm", "rmsnorm_row"):
+        assert ops.LAUNCHES[name] == before[name] + 1
+
+
+def test_rmsnorm_launch_error_raises_without_fallback(monkeypatch):
+    """A failed launch raises with its CUDA error; nothing retries on the
+    old kernel and nothing is counted."""
+    launched = _rms_library(monkeypatch, rc=700)
+    x = torch.ones(4, 64).as_subclass(_OnCard)
+    before = dict(ops.LAUNCHES)
+    with pytest.raises(RuntimeError, match="rmsnorm_row_launch.*700"):
+        ops.rmsnorm(x, torch.zeros(64).as_subclass(_OnCard))
+    assert [name for name, _ in launched] == ["rmsnorm_row_launch"]
+    assert ops.LAUNCHES == before
+
+
+@pytest.mark.parametrize("where", ["cpu", "empty on the card"])
+def test_rmsnorm_wrapper_launches_nothing_on_cpu_or_empty(monkeypatch,
+                                                          where):
+    """A CPU tensor runs the plain version; no rows on the card give an
+    empty result; neither launches nor counts."""
+    launched = _rms_library(monkeypatch)
+    x, w = torch.randn(3, 16), torch.randn(16)
+    if where == "cpu":
+        before = dict(ops.LAUNCHES)
+        torch.testing.assert_close(ops.rmsnorm(x, w), ref.rmsnorm(x, w))
+    else:
+        x, w = x[:0].as_subclass(_OnCard), w.as_subclass(_OnCard)
+        before = dict(ops.LAUNCHES)
+        assert ops.rmsnorm(x, w).shape == (0, 16)
+    assert launched == [] and ops.LAUNCHES == before
+
+
 # ------------------------------------------------------------ lm_prefill
 PREFILL_CASES = {"dense": (DENSE, None), "moe-dropless": (MOE, "dropless"),
                  "moe-capacity": (MOE, "capacity")}
@@ -652,14 +758,19 @@ def test_flash_mma_kernel_matches_plain_on_card(cuda, B, S, T, H, K, hd,
                                        (torch.bfloat16, 2e-2)],
                          ids=["f32", "bf16"])
 @pytest.mark.parametrize("N,D", [(1, 5120), (8, 1536), (1200, 5120),
-                                 (37, 64), (5, 30)])
+                                 (37, 64), (5, 30), (8, 7168), (836, 3584),
+                                 (1200, 130), (3, 20000), (8, 1)])
 def test_rmsnorm_kernel_matches_plain_on_card(cuda, N, D, dtype, tol):
+    """The row-spread kernel at the served widths (decode and prefill row
+    counts), short rows that share a CTA, odd D (an element a unit) and a
+    row too long for registers (20000: the strided loop)."""
     rng = np.random.RandomState(N + D)
     x = _t(rng.randn(N, D).astype(np.float32)).to(cuda, dtype)
     w = _t((rng.randn(D) * 0.1).astype(np.float32)).to(cuda, dtype)
-    before = ops.LAUNCHES["rmsnorm"]
+    before = dict(ops.LAUNCHES)
     got = ops.rmsnorm(x, w)
     torch.cuda.synchronize()
-    assert ops.LAUNCHES["rmsnorm"] == before + 1
+    for name in ("rmsnorm", "rmsnorm_row"):
+        assert ops.LAUNCHES[name] == before[name] + 1
     torch.testing.assert_close(got.float(), ref.rmsnorm(x, w).float(),
                                atol=tol, rtol=tol)
