@@ -2,11 +2,13 @@
 kernels from this checkout and drives the serving engine on one card:
 the paged plane for the dense family (mistral-nemo-12b) and the moe
 family (granite-moe-3b-a800m), each with chunked and with one-shot
-prefill, and the dense-cache plane for the hybrid family (zamba2-7b).
+prefill, the dense-cache plane for the hybrid family (zamba2-7b), and
+the paged sliding-window plane (h2o-danube-3-4b, window 4096), chunked,
+one-shot and with the copy-on-write prefix cache.
 
     python3 chip_smoke.py            # every phase; needs one CUDA card
     python3 chip_smoke.py --quick    # device, build, kernel checks only
-    python3 chip_smoke.py --profile  # also trace the five engines
+    python3 chip_smoke.py --profile  # also trace the seven engines
 
 Phases (each prints its own lines and wall time; any failure raises):
   1. device   — card name, and name + power limit from nvidia-smi;
@@ -71,7 +73,18 @@ Phases (each prints its own lines and wall time; any failure raises):
                 through the library, held to the same tolerance beside
                 it, and each printing its launch geometry as
                 ops.ssd_scan_mma_geometry computes it and as the card
-                reports it (CTAs an SM holds, registers, spills).
+                reports it (CTAs an SM holds, registers, spills); and
+                h2o-danube-3-4b's attention at its window, 4096 (32 / 8
+                heads, hd 120, bt 16), in bf16 and f32: paged_attention
+                at lengths 4,097-8,195 in a 520-column table,
+                paged_prefill_attention with chunks of 64 at contexts
+                4,100-8,130 in a 528-column table, each table's leading
+                entries -1 as release_behind leaves them, and one
+                flash_attention call, S = T = 5,000, whose rows past the
+                window are also held one by one (|got - plain| over hd
+                <= tol |plain| a row; the same for every causal windowed
+                case with S = T), and the kernel called at window - 1
+                and window + 1 must fail that check.
                 Tolerance: the attention kernels |got - plain| <= tol, the
                 others |got - plain| <= tol + tol * |plain|, with tol =
                 2e-2 in bf16 and 1e-4 in f32 (TF32 off); ssd_scan 1e-3 in
@@ -130,6 +143,14 @@ Phases (each prints its own lines and wall time; any failure raises):
                 rao_scatter_add L per model call (bf16: all on the
                 on-chip kernel, LAUNCHES["rao_scatter_add_onchip"] equal
                 to it, 0 in the f32 tiny engines);
+                then (freed) full-width 24-layer h2o-danube-3-4b (window
+                4096, hd 120; 8 slots, max_len 8,448, 32 new tokens a
+                request): chunked, prompts of 4 x [17, 300], 4,096,
+                4,101, 6,000 and 8,195 tokens, and one-shot
+                (prefill_batch 4), a group of 4 x 300 and one of 4 x
+                5,000 (ring-packed rows): every decoding slot past the
+                window holds at most ceil(4096 / 16) + 2 blocks and every
+                allocated block is freed by the drain;
                 zamba2: ssd_scan 81 and flash_attention 13 per group call,
                 rmsnorm 189 per model call, no paged kernel, every
                 ssd_scan call on the tensor-core kernel
@@ -178,7 +199,18 @@ Phases (each prints its own lines and wall time; any failure raises):
                 the mistral and the granite chunked paths' decode call
                 with the most work: the split-KV kernel beside the
                 one-CTA kernel of paged_attention.cu called through the
-                library, SDPA over the gathered KV and the plain version.
+                library, SDPA over the gathered KV and the plain version;
+                both paged kernels also at the danube chunked path's
+                calls with the most work (SDPA's mask with the window);
+  7. prefix   — two more serve paths (phase_serve and its checks):
+                full-width h2o-danube-3-4b chunked, a cold run and then a
+                prefix_cache=True run of 8 requests sharing a 1,024-token
+                prefix (tails of 1 to 3,500 tokens; the first request
+                alone until its prompt is in): the shared pages stay
+                byte for byte the same after every tick of the hot run,
+                the cache hits, the hot run allocates fewer blocks, and
+                each hot request's first-token logits lie within 2e-2
+                normwise of the cold run's.
 The line before the last is the kernels' JSON record; the last line is
 {"ok": true, "device": {...}}.  Without a card, or without the rest of
 the repository beside it, the script exits non-zero and prints no result.
@@ -250,7 +282,7 @@ ATTENTION = ("paged_attention", "paged_prefill_attention")
 MOE = ("moe_gmm", "rao_scatter_add")
 ONESHOT = ("flash_attention", "rmsnorm")
 DENSE_ARCH, MOE_ARCH = "mistral-nemo-12b", "granite-moe-3b-a800m"
-HYBRID_ARCH = "zamba2-7b"
+HYBRID_ARCH, SWA_ARCH = "zamba2-7b", "h2o-danube-3-4b"
 DEV = torch.device("cuda")
 SPIN_CYCLES = 20_000_000         # ~10 ms at the H100's ~2 GHz SM clock
 
@@ -306,10 +338,12 @@ def close(got, exp, tol):
 
 # ------------------------------------------------------------ inputs
 def pool_inputs(rng, B, H, K, hd, bt, nb, lens, dtype, *, C=None,
-                neg_inside=(), masked=()):
+                neg_inside=(), masked=(), first_live=None):
     """Random q / arena / new kv on the card with a shuffled block table
     covering ``lens`` tokens per slot; ``neg_inside`` entries become -1,
-    ``masked`` slots get all--1 rows."""
+    ``masked`` slots get all--1 rows, and with ``first_live`` each slot's
+    leading blocks wholly before its first live position become -1, all
+    but the slot's last, as ``KVBlockPager.release_behind`` leaves them."""
     P = B * nb + 1
     lead = (B,) if C is None else (B, C)
     perm = rng.permutation(P - 1)
@@ -323,6 +357,8 @@ def pool_inputs(rng, B, H, K, hd, bt, nb, lens, dtype, *, C=None,
         btab[b, i] = -1
     for b in masked:
         btab[b] = -1
+    for b, lo in enumerate(first_live or ()):
+        btab[b, :min(max(0, lo) // bt, -(-int(lens[b]) // bt) - 1)] = -1
 
     def rnd(*shape):
         return torch.from_numpy(rng.randn(*shape).astype(np.float32)) \
@@ -409,6 +445,7 @@ def phase_kernels(errs):
         for window in (0, 100):
             check_decode(rng, errs, torch.bfloat16, 2e-2, label, H, K, hd,
                          bt, nb, lens, window)
+    check_swa_kernels(rng, errs)
     check_moe_kernels(rng, errs)
     check_rao_kernels(rng, errs)
     check_oneshot_kernels(rng, errs)
@@ -459,16 +496,19 @@ def one_cta_decode(args, kw, out):
 
 
 def check_decode(rng, errs, dtype, tol, label, H, K, hd, bt, nb, lens,
-                 window, timed=False):
+                 window, timed=False, released=False):
     """paged_attention against its plain version: 8 slots with ``lens``
     (slot 0 new, with an all--1 row; -1 entries inside the live range of
-    slots 3 and 6).  bf16 must take the split-KV kernel, keep f32 softmax
-    weights (under 1% of the elements differ at all) and launch on a
-    geometry the card holds; the one-CTA kernel is held to the same
+    slots 3 and 6; with ``released``, instead, each slot's leading blocks
+    behind the window -1, as the engine's ``release_behind(slot, pos -
+    window)`` leaves them).  bf16 must take the split-KV kernel, keep f32
+    softmax weights (under 1% of the elements differ at all) and launch
+    on a geometry the card holds; the one-CTA kernel is held to the same
     tolerance beside it."""
+    where = dict(first_live=[L + 1 - window for L in lens]) if released \
+        else dict(neg_inside=NEG_INSIDE, masked=(0,))
     q, kp, vp, btab, kn, vn = pool_inputs(
-        rng, 8, H, K, hd, bt, nb, lens, dtype, neg_inside=NEG_INSIDE,
-        masked=(0,))
+        rng, 8, H, K, hd, bt, nb, lens, dtype, **where)
     ln = torch.tensor(lens, dtype=torch.int32, device=DEV)
     args = (q, kp, vp, btab, ln, kn, vn)
     run = partial(ops.paged_attention, *args, window=window)
@@ -529,17 +569,24 @@ PREFILL_CASES = [("granite", 24, 8, 64, 64, 16), ("hd 120", 32, 8, 120, 64, 16),
 
 
 def check_prefill(rng, errs, dtype, tol, label, H, K, hd, C, bt, window,
-                  timed=False):
+                  timed=False, ctx=None, nb=None):
     """paged_prefill_attention against its plain version: 8 slots with
     ragged contexts up to 448 (a masked slot, a new one), -1 table entries
-    inside the live range.  bf16 must take the tensor-core kernel and keep
-    f32 softmax weights: under 1% of the elements may differ at all (bf16
+    inside the live range; or, given ``ctx``, those contexts in a table of
+    ``nb`` columns whose leading blocks behind each chunk's window are -1,
+    as the chunked engine's ``release_behind(slot, ctx - window + 1)``
+    leaves them.  bf16 must take the tensor-core kernel and keep f32
+    softmax weights: under 1% of the elements may differ at all (bf16
     weights change far more)."""
-    B, nb = 8, -(-512 // bt)
-    ctx = [0, 0, 16, 37, 128, 200, 300, 448]           # 0, 0: masked, new
+    B = 8
+    if ctx is None:
+        nb = -(-512 // bt)
+        ctx = [0, 0, 16, 37, 128, 200, 300, 448]       # 0, 0: masked, new
+        where = dict(neg_inside=((4, 0), (5, 2)), masked=(0,))
+    else:
+        where = dict(first_live=[c - window + 1 for c in ctx])
     q, kp, vp, btab, kn, vn = pool_inputs(
-        rng, B, H, K, hd, bt, nb, [c + C for c in ctx], dtype, C=C,
-        neg_inside=((4, 0), (5, 2)), masked=(0,))
+        rng, B, H, K, hd, bt, nb, [c + C for c in ctx], dtype, C=C, **where)
     cx = torch.tensor(ctx, dtype=torch.int32, device=DEV)
     run = partial(ops.paged_prefill_attention, q, kp, vp, btab, cx, kn, vn,
                   window=window)
@@ -565,13 +612,37 @@ def check_prefill(rng, errs, dtype, tol, label, H, K, hd, C, bt, window,
                  f"{time_ms(plain, 3):.4f} ms")
     print(f"[kernels] paged_prefill_attention{'_mma' if mma else ''} "
           f"{str(dtype)[6:]} {label}: H {H} K {K} hd {hd} C {C} bt {bt} "
-          f"window {window}: max_abs_err {e:.3g} (tol {tol}), max|exp| "
+          f"nb {nb} window {window}: max_abs_err {e:.3g} (tol {tol}), max|exp| "
           f"{mag:.4g}, elements that differ {share:.3%}{times}")
     if not ok:
         raise AssertionError(f"paged_prefill_attention disagrees or took the "
                              f"wrong kernel: {e}, {share:.3%}, {ops.LAUNCHES}")
     errs["paged_prefill_attention" if mma
          else "paged_prefill_attention_cuda_core"].append(e)
+
+
+# h2o-danube-3-4b's heads (32 / 8, hd 120) at its window, 4096, on the
+# shapes its full-width paths give the kernels: decode lengths past the
+# window (the table of 520 columns the decode bucket ships at 8,196
+# tokens), chunks of 64 at contexts past it (the full 528-column table of
+# max_len 8448), each table's leading entries -1 as release_behind leaves
+# them; and (check_oneshot_kernels) one prompt forward of 5,000 tokens
+SWA = dict(H=32, K=8, hd=120, bt=16, window=4096)
+SWA_DECODE_LENS = [4097, 4100, 4111, 5000, 6000, 7003, 8192, 8195]
+SWA_PREFILL_CTX = [4100, 4103, 4500, 5000, 6100, 7000, 8000, 8130]
+
+
+def check_swa_kernels(rng, errs):
+    """The paged attention kernels of the sliding-window paths at
+    h2o-danube-3-4b's shapes, window 4096, each in bf16 and f32 against
+    its plain version (check_decode, check_prefill; flash_attention's
+    case, S = T = 5,000, is one of check_oneshot_kernels')."""
+    H, K, hd, bt, W = (SWA[k] for k in ("H", "K", "hd", "bt", "window"))
+    for dtype, tol in ((torch.bfloat16, 2e-2), (torch.float32, 1e-4)):
+        check_decode(rng, errs, dtype, tol, "danube window", H, K, hd, bt,
+                     520, SWA_DECODE_LENS, W, released=True)
+        check_prefill(rng, errs, dtype, tol, "danube window", H, K, hd, 64,
+                      bt, W, ctx=SWA_PREFILL_CTX, nb=528)
 
 
 def close_normwise(got, exp, tol):
@@ -683,9 +754,22 @@ def check_ssd_kernel(rng, errs):
             errs["ssd_scan_cuda_core"].append(old)
 
 
+def window_rows_err(got, exp, window):
+    """The largest ||got - exp|| / ||exp|| over hd, of any (batch row,
+    query row at or past ``window``, head): the rows whose window cuts
+    keys off, each held to its own size (a window edge one key off moves
+    some such row by far more than bf16 rounding does)."""
+    g, e = got[:, window:].float(), exp[:, window:].float()
+    return float(((g - e).norm(dim=-1)
+                  / e.norm(dim=-1).clamp_min(1e-30)).max())
+
+
 def check_oneshot_kernels(rng, errs):
     """flash_attention at the served models' head shapes against the plain
-    version."""
+    version.  A causal windowed case with S = T > window also holds the
+    rows past the window row by row (``window_rows_err``), and shows that
+    the check sees a window one key off: the kernel called at window - 1
+    and window + 1 must fail it."""
     def rnd(shape, dtype, scale=1.0):
         return torch.from_numpy(
             (rng.randn(*shape) * scale).astype(np.float32)).to(DEV, dtype)
@@ -700,7 +784,9 @@ def check_oneshot_kernels(rng, errs):
                     (2, 150, 77, 32, 8, 128, 0, True),
                     (2, 20, 20, 6, 3, 8, 0, True),
                     (1, 33, 33, 4, 2, 40, 0, True),
-                    (1, 65, 65, 8, 1, 200, 16, True)]
+                    (1, 65, 65, 8, 1, 200, 16, True),
+                    (1, 5000, 5000, SWA["H"], SWA["K"], SWA["hd"],
+                     SWA["window"], True)]
     for dtype, tol in ((torch.bfloat16, 2e-2), (torch.float32, 1e-4)):
         mma = int(dtype == torch.bfloat16)
         top = 0.0   # the largest |plain output| the cases met
@@ -720,10 +806,21 @@ def check_oneshot_kernels(rng, errs):
                 before["flash_attention"] + 1 and \
                 ops.LAUNCHES["flash_attention_mma"] == \
                 before["flash_attention_mma"] + mma
+            rows = ""
+            if window and causal and S == T > window:
+                row = window_rows_err(got, exp, window)
+                off = [window_rows_err(ops.flash_attention(
+                    q, k, v, causal=True, window=w), exp, window)
+                    for w in (window - 1, window + 1)]
+                ok = ok and row <= tol and min(off) > tol
+                rows = (f"; rows [{window}, {S}) normwise a row {row:.3g} "
+                        f"(tol {tol}), the kernel at window {window - 1} / "
+                        f"{window + 1} {off[0]:.3g} / {off[1]:.3g} (must "
+                        f"exceed the tol)")
             print(f"[kernels] flash_attention{'_mma' if mma else ''} "
                   f"{str(dtype)[6:]} B {B} S {S} T {T} H {H} K {K} hd {hd} "
                   f"window {window} causal {causal}: max_abs_err {e:.3g} "
-                  f"(tol {tol}), max|exp| {mag:.4g}")
+                  f"(tol {tol}), max|exp| {mag:.4g}{rows}")
             if not ok:
                 raise AssertionError(f"flash_attention disagrees: {e}")
             errs["flash_attention"].append(e)
@@ -1088,7 +1185,7 @@ class Recorder:
         setattr(ops, self.name, self.fn)
 
 
-# the four served paths: (arch, label, moe routing, server options)
+# the served paths: (arch, label, moe routing, server options)
 PATHS = {
     "mistral chunked": (DENSE_ARCH, "chunked", None, {}),
     "mistral one-shot": (DENSE_ARCH, "one-shot", None,
@@ -1097,7 +1194,81 @@ PATHS = {
     "granite one-shot": (MOE_ARCH, "capacity one-shot", "capacity",
                          dict(prefill_batch=4)),
     "zamba2 dense": (HYBRID_ARCH, "dense", None, dict(prefill_batch=4)),
+    "danube chunked": (SWA_ARCH, "chunked", None, {}),
+    "danube one-shot": (SWA_ARCH, "one-shot", None,
+                        dict(prefill_chunk=0, prefill_batch=4)),
+    "danube prefix cold": (SWA_ARCH, "chunked prefix cold", None, {}),
+    "danube prefix": (SWA_ARCH, "chunked prefix", None,
+                      dict(prefix_cache=True)),
 }
+# the sliding-window paths' engines hold 8,448 tokens a slot and serve
+# prompts past the window: chunked 4 short ones and 4,096 / 4,101 / 6,000
+# / 8,195 tokens; one-shot a group of 4 x 300 and one of 4 x 5,000 (ring-
+# packed rows); the other paths' engines hold 512 tokens
+SWA_MAX_LEN = 8448
+PATH_PROMPTS = {
+    "danube chunked": lambda rng: np.concatenate(
+        [rng.randint(17, 301, size=4), [4096, 4101, 6000, 8195]]),
+    "danube one-shot": lambda rng: np.repeat([300, 5000], 4),
+}
+# the prefix paths: 8 requests that share a 1,024-token prefix (a multiple
+# of the chunk and the block), cold and with the prefix cache; the first
+# one's tail is one token and it is served alone until its prompt is in
+# (and published), then the other 7 come at once
+PREFIX_LEN = 1024
+PREFIX_TAILS = (1, 17, 300, 1000, 2047, 2900, 3071, 3500)
+
+
+def prefix_waves(vocab, seed):
+    rng = np.random.RandomState(seed + 7)
+    prefix = rng.randint(1, vocab - 1, size=PREFIX_LEN).tolist()
+    prompts = [prefix + rng.randint(1, vocab - 1, size=t).tolist()
+               for t in PREFIX_TAILS]
+    return [prompts[:1], prompts[1:]]
+
+
+# paths whose requests come in waves: each wave is submitted once the
+# prompts before it are in
+PATH_WAVES = {"danube prefix cold": prefix_waves,
+              "danube prefix": prefix_waves}
+
+
+class SharedPages:
+    """The prefix-cache run's page check: ``snapshot`` keeps a copy of the
+    first ``n_blocks`` pages of a slot (the published prefix), and every
+    later tick of the engine must leave them byte for byte as they were."""
+
+    def __init__(self, srv, n_blocks):
+        self.srv, self.n_blocks = srv, n_blocks
+        self.kept = None
+        self.ticks = 0
+        step = srv.step
+
+        def run():
+            out = step()
+            if self.kept is not None:
+                self.check()
+            return out
+        srv.step = run
+
+    def snapshot(self, slot):
+        row = self.srv.pager.block_table()[slot, :self.n_blocks]
+        if (row < 0).any():
+            raise AssertionError(f"the prefix blocks are not all mapped: "
+                                 f"{row}")
+        ids = torch.from_numpy(row.astype(np.int64)).to(DEV)
+        pages = self.srv.pages
+        self.kept = (ids, pages["kp"][:, ids].clone(),
+                     pages["vp"][:, ids].clone())
+
+    def check(self):
+        ids, k0, v0 = self.kept
+        pages = self.srv.pages
+        self.ticks += 1
+        if not (torch.equal(pages["kp"][:, ids], k0) and
+                torch.equal(pages["vp"][:, ids], v0)):
+            raise AssertionError(f"a shared prefix page changed after tick "
+                                 f"{self.ticks}")
 
 
 def norms_per_call(cfg):
@@ -1166,22 +1337,33 @@ def phase_serve(path, card, seed=0):
           f"{cfg.head_dim}, {ffn}, vocab {cfg.vocab}; "
           f"{n_params / 1e9:.2f} B bf16 params initialised in "
           f"{time.perf_counter() - t0:.1f} s")
-    srv = BatchServer(model, batch_slots=8, max_len=512, block_tokens=16,
-                      params=params, device=DEV, sync_timers=True, **kw)
+    max_len = SWA_MAX_LEN if cfg.sliding_window else 512
+    srv = BatchServer(model, batch_slots=8, max_len=max_len,
+                      block_tokens=16, params=params, device=DEV,
+                      sync_timers=True, **kw)
     del params
     oneshot = srv.prefill_chunk == 0
     rng = np.random.RandomState(seed)
-    if not srv.paged:   # 2 waves of 8 equal prompt lengths (groups of 4)
-        plens = np.repeat(rng.randint(17, 301, size=2), 8)
-    elif oneshot:     # 4 groups of 4 equal prompt lengths, back to back
-        plens = np.repeat(rng.randint(17, 301, size=4), 4)
+    if path in PATH_WAVES:
+        waves = PATH_WAVES[path](cfg.vocab, seed)
     else:
-        plens = rng.randint(17, 301, size=16)
-    for i, n in enumerate(plens):
-        srv.submit_wire(encode_request(
-            i, rng.randint(1, cfg.vocab - 1, size=int(n)).tolist(), 32))
+        if path in PATH_PROMPTS:
+            plens = PATH_PROMPTS[path](rng)
+        elif not srv.paged:   # 2 waves of 8 equal lengths (groups of 4)
+            plens = np.repeat(rng.randint(17, 301, size=2), 8)
+        elif oneshot:     # 4 groups of 4 equal prompt lengths, back to back
+            plens = np.repeat(rng.randint(17, 301, size=4), 4)
+        else:
+            plens = rng.randint(17, 301, size=16)
+        waves = [[rng.randint(1, cfg.vocab - 1, size=int(n)).tolist()
+                  for n in plens]]
+    n_req = sum(len(w) for w in waves)
+    prompt_toks = sum(len(p) for w in waves for p in w)
+    for i, p in enumerate(waves[0]):
+        srv.submit_wire(encode_request(i, p, 32))
     finite = []
     group_rows = []
+    first = {}      # request -> its first token's logits (chunked paths)
 
     def checked(step, rows=None):
         def run(*a):
@@ -1189,6 +1371,16 @@ def phase_serve(path, card, seed=0):
             finite.append(torch.isfinite(lg).all())
             if rows is not None:
                 rows.append(lg.shape[0])
+            return lg, out
+        return run
+
+    def first_logits(step):
+        def run(*a):
+            lg, out = step(*a)
+            for slot, req in srv.active.items():
+                if req.state.name == "PREFILLING" and \
+                        len(req.prompt) - req.prefilled <= srv.prefill_chunk:
+                    first[req.req_id] = lg[slot].clone()
             return lg, out
         return run
     admit_s = []                # host time of the pager's admissions
@@ -1201,9 +1393,21 @@ def phase_serve(path, card, seed=0):
             return out
         return run
     srv.pager.admit = timed_admit(srv.pager.admit)
+    resident = []   # blocks of each decoding slot past the window, a tick
+
+    def window_held(step):
+        def run(*a):
+            resident.extend(srv.pager.resident_blocks(slot)
+                            for slot, req in srv.active.items()
+                            if req.state.name == "DECODE"
+                            and req.pos > srv.window)
+            return step(*a)
+        return run
     if srv.paged:
         srv._paged_decode = checked(srv._paged_decode)
-        srv._chunk_prefill = checked(srv._chunk_prefill)
+        if srv.window:
+            srv._paged_decode = window_held(srv._paged_decode)
+        srv._chunk_prefill = first_logits(checked(srv._chunk_prefill))
         srv._prefill_exact = checked(srv._prefill_exact, group_rows)
     else:
         srv._decode = checked(srv._decode)
@@ -1223,13 +1427,27 @@ def phase_serve(path, card, seed=0):
         periods["rmsnorm"] = (norms_per_call(cfg), 3)
     recorders = [Recorder(key.removesuffix("_down"), n, off, key)
                  for key, (n, off) in periods.items()]
+    shared = SharedPages(srv, PREFIX_LEN // srv.pager.block_tokens) \
+        if srv.pager.prefix_cache else None
     torch.cuda.synchronize()
     ops.reset_launches()
     t0 = time.perf_counter()
     with ExitStack() as stack:
         for r in recorders:
             stack.enter_context(r)
-        bufs = srv.run_until_drained()
+        bufs = []
+        n_in = len(waves[0])
+        for wave in waves[1:]:      # step until every prompt so far is in
+            while len(srv.queue) or any(r.state.name == "PREFILLING"
+                                        for r in srv.active.values()):
+                bufs.extend(srv.step())
+            if shared is not None:
+                shared.snapshot(next(s for s, r in srv.active.items()
+                                     if r.req_id == 0))
+            for i, p in enumerate(wave, n_in):
+                srv.submit_wire(encode_request(i, p, 32))
+            n_in += len(wave)
+        bufs.extend(srv.run_until_drained())
         torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     launches = dict(ops.LAUNCHES)
@@ -1242,11 +1460,11 @@ def phase_serve(path, card, seed=0):
         outs[msg[1]] = np.frombuffer(msg[2], np.int32).tolist()
     peak = torch.cuda.max_memory_allocated() / 2**30
     name = f"{cfg.name} {label}"
-    print(f"[serve] {name}: {len(outs)}/16 drained, {st['failed']} failed, "
+    print(f"[serve] {name}: {len(outs)}/{n_req} drained, {st['failed']} "
+          f"failed, "
           f"{st['ticks']} ticks ({groups} group calls of {group_rows} rows, "
           f"{st['prefill_chunks']} chunk ticks, {st['decode_steps']} decode "
           f"ticks) in {wall:.2f} s; peak memory {peak:.2f} GiB [{card}]")
-    prompt_toks = int(plens.sum())
     if oneshot:
         # the group forwards run inside admission; splice_wall_s holds
         # only the page writes (as in the JAX engine)
@@ -1264,16 +1482,39 @@ def phase_serve(path, card, seed=0):
     print(f"[serve] {name} decode: {st['decode_tokens']} tokens in "
           f"{st['decode_wall_s']:.3f} s = "
           f"{st['decode_tokens'] / st['decode_wall_s']:.1f} tok/s [{card}]")
+    ttft = sorted(r.first_token_t - r.arrival_t for r in srv.completed_reqs)
+    sent = f"all {n_req} submitted at once" if len(waves) == 1 else \
+        f"{n_req} submitted in waves of {[len(w) for w in waves]}"
+    print(f"[serve] {name} TTFT (submission to first token, {sent}): median {statistics.median(ttft):.3f} s, "
+          f"max {ttft[-1]:.3f} s [{card}]")
+    kv = srv.kv_stats()
+    if shared is not None:
+        pf = kv["prefix"]
+        print(f"[serve] {name}: prefix hits {pf['hits']} ({pf['hit_tokens']}"
+              f" tokens), {pf['published']} blocks published, shared pages "
+              f"byte for byte after {shared.ticks} ticks; blocks allocated "
+              f"{kv['blocks_allocated']} [{card}]")
+        srv.pager.evict_prefixes()      # the cache's own references
+    freed = srv.kv_stats()["blocks_freed"]
+    if srv.window:
+        bound = -(-srv.window // srv.pager.block_tokens) + 2
+        print(f"[serve] {name} window {srv.window}: resident blocks of a "
+              f"decoding slot past the window at most {max(resident)} "
+              f"(bound {bound}, {len(resident)} slot ticks); blocks "
+              f"allocated {kv['blocks_allocated']}, freed {freed} [{card}]")
+        if max(resident) > bound or kv["blocks_allocated"] != freed:
+            raise AssertionError(f"the window's footprint is not O(window):"
+                                 f" {max(resident)} > {bound} or {kv}")
     expected = expected_launches(cfg, st, groups)
     print(f"[serve] {name} launches {launches}; expected {expected}")
-    if len(outs) != 16 or st["failed"] or \
+    if len(outs) != n_req or st["failed"] or \
             any(len(v) != 32 for v in outs.values()):
         raise AssertionError(f"requests not drained: {st}")
     if leaked(srv):
         raise AssertionError("pages leaked")
     if not bool(torch.stack(finite).all()):
         raise AssertionError("non-finite logits on the main path")
-    if oneshot and group_rows != [4] * 4:
+    if oneshot and group_rows != [4] * (n_req // 4):
         raise AssertionError(f"admission groups did not form: {group_rows}")
     if cfg.family == "hybrid":
         required = HYBRID_KERNELS
@@ -1283,7 +1524,35 @@ def phase_serve(path, card, seed=0):
     if launches != expected or not all(launches[k] for k in required):
         raise AssertionError(f"launch counts do not match ticks: "
                              f"{launches} vs {expected}")
-    return name, launches, recs, srv
+    return name, launches, recs, srv, dict(outs=outs, first=first, kv=kv)
+
+
+def compare_prefix(cold, hot):
+    """The prefix paths' runs side by side: the hot one must hit the
+    cache, allocate fewer blocks, and give every request first-token
+    logits within 2e-2 normwise of the cold run's; prints how many greedy
+    tokens agree (the decode split count follows the table width, so
+    exact agreement is not required)."""
+    if not hot["kv"]["prefix"]["hits"] or \
+            hot["kv"]["blocks_allocated"] >= cold["kv"]["blocks_allocated"]:
+        raise AssertionError(f"the prefix cache did not share: cold "
+                             f"{cold['kv']['blocks_allocated']} blocks, hot "
+                             f"{hot['kv']}")
+    errs = {}
+    for rid, c in cold["first"].items():
+        c, h = c.float(), hot["first"][rid].float()
+        errs[rid] = float((h - c).abs().max() / c.abs().max())
+    c_out, h_out = cold["outs"], hot["outs"]
+    agree = sum(a == b for rid in c_out
+                for a, b in zip(c_out[rid], h_out[rid]))
+    whole = sum(c_out[rid] == h_out[rid] for rid in c_out)
+    print(f"[prefix] first-token logits hot vs cold, normwise: "
+          f"{', '.join(f'{r} {e:.3g}' for r, e in sorted(errs.items()))} "
+          f"(tol 2e-2); greedy tokens agreeing {agree}/{32 * len(c_out)}, "
+          f"{whole}/{len(c_out)} requests whole")
+    if len(errs) != len(PREFIX_TAILS) or max(errs.values()) > 2e-2:
+        raise AssertionError(f"hot first-token logits drift from cold: "
+                             f"{errs}")
 
 
 def _leaves(tree):
@@ -1333,7 +1602,7 @@ def prefill_work(q, btab, ctx, kp, window):
     return nbytes, flops
 
 
-def dense_inputs(q, kp, vp, btab, lens, kn, vn, *, chunk):
+def dense_inputs(q, kp, vp, btab, lens, kn, vn, *, chunk, window=0):
     """Gathered dense K/V (kv heads expanded to H) and the boolean mask of
     the same function, for one scaled_dot_product_attention call."""
     B = q.shape[0]
@@ -1351,12 +1620,19 @@ def dense_inputs(q, kp, vp, btab, lens, kn, vn, *, chunk):
         live = (pos[None] < L) & (btab >= 0).repeat_interleave(bt, 1)
         live = live[:, None, :].expand(B, C, nb * bt)
         own = torch.ones(C, C, dtype=torch.bool, device=DEV).tril()
+        if window:
+            c = torch.arange(C, device=DEV)
+            live = live & (pos[None, None] > (L[:, :, None] + c[None, :, None]
+                                              - window))
+            own = own & (c[None, :] > c[:, None] - window)
         mask = torch.cat([live, own[None].expand(B, C, C)], dim=-1)
         k = torch.cat([kg, kn], dim=1)
         v = torch.cat([vg, vn], dim=1)
         qd = q.transpose(1, 2)                         # (B, H, C, hd)
     else:
         live = pos[None] < L
+        if window:
+            live = live & (pos[None] > L - window)
         mask = torch.cat([live, torch.ones(B, 1, dtype=torch.bool,
                                            device=DEV)], dim=-1)[:, None]
         k = torch.cat([kg, kn[:, None]], dim=1)
@@ -1416,7 +1692,8 @@ def measure_prefill(recs, errs, flush, path):
     cuda_core = partial(cuda_core_prefill, args, kw, old)
     if cuda_core():
         raise AssertionError("the CUDA-core kernel did not launch")
-    qd, k, v, mask = dense_inputs(*args, chunk=True)
+    qd, k, v, mask = dense_inputs(*args, chunk=True,
+                                  window=kw.get("window", 0))
     library = partial(sdpa, qd, k, v, attn_mask=mask)
     lib = library().transpose(1, 2)
     torch.cuda.synchronize()
@@ -1475,7 +1752,8 @@ def measure_decode(recs, errs, flush, path):
     unsplit = partial(one_cta_decode, args, kw, old)
     if unsplit():
         raise AssertionError("the one-CTA decode kernel did not launch")
-    qd, k, v, mask = dense_inputs(*args, chunk=False)
+    qd, k, v, mask = dense_inputs(*args, chunk=False,
+                                  window=kw.get("window", 0))
     library = partial(sdpa, qd, k, v, attn_mask=mask)
     lib = library()[:, :, 0]
     torch.cuda.synchronize()
@@ -2093,18 +2371,18 @@ def main(argv=None):
         return 0
     phase_tiny()
     by_path = {}
-    name, by_path[name], recs, srv = phase_serve("mistral chunked", card)
+    name, by_path[name], recs, srv, _ = phase_serve("mistral chunked", card)
     meas = phase_measure(recs, errs)
     if args.profile:
         phase_profile(srv)
     del srv, recs                      # free the arena and the params
-    name, by_path[name], recs, srv = phase_serve("mistral one-shot", card)
+    name, by_path[name], recs, srv, _ = phase_serve("mistral one-shot", card)
     meas.update(phase_measure_oneshot(recs, errs, name))
     if args.profile:
         phase_profile(srv)
     del srv, recs                      # free mistral's 24.5 GB of params
     torch.cuda.empty_cache()
-    name, by_path[name], recs, srv = phase_serve("granite chunked", card)
+    name, by_path[name], recs, srv, _ = phase_serve("granite chunked", card)
     meas.update(phase_measure_moe(recs, errs))
     for name, rows in phase_measure_paged(recs, errs,
                                           "granite chunked").items():
@@ -2112,7 +2390,7 @@ def main(argv=None):
     if args.profile:
         phase_profile(srv)
     del srv, recs
-    name, by_path[name], recs, srv = phase_serve("granite one-shot", card)
+    name, by_path[name], recs, srv, _ = phase_serve("granite one-shot", card)
     for kname, rows in phase_measure_oneshot(recs, errs, name).items():
         meas[kname]["shapes"].update(rows["shapes"])
     for kname, rows in phase_measure_moe_oneshot(recs, errs).items():
@@ -2121,13 +2399,34 @@ def main(argv=None):
         phase_profile(srv)
     del srv, recs
     torch.cuda.empty_cache()
-    name, by_path[name], recs, srv = phase_serve("zamba2 dense", card)
+    name, by_path[name], recs, srv, _ = phase_serve("zamba2 dense", card)
     meas.update(phase_measure_ssd(recs, errs))
     for kname, rows in phase_measure_oneshot(recs, errs, name).items():
         meas[kname]["shapes"].update(rows["shapes"])
     if args.profile:
         phase_profile(srv)
     del srv, recs
+    torch.cuda.empty_cache()
+    name, by_path[name], recs, srv, _ = phase_serve("danube chunked", card)
+    for kname, rows in phase_measure_paged(recs, errs,
+                                           "danube chunked").items():
+        meas[kname]["shapes"].update(rows)
+    if args.profile:
+        phase_profile(srv)
+    del srv, recs
+    torch.cuda.empty_cache()
+    name, by_path[name], recs, srv, _ = phase_serve("danube one-shot", card)
+    if args.profile:
+        phase_profile(srv)
+    del srv, recs
+    torch.cuda.empty_cache()
+    runs = []
+    for path in ("danube prefix cold", "danube prefix"):
+        name, by_path[name], recs, srv, run = phase_serve(path, card)
+        runs.append(run)
+        del srv, recs
+        torch.cuda.empty_cache()
+    compare_prefix(*runs)
     record = {"kernels": [
         dict(name=name, route="cuda", **KERNELS[name],
              launches=sum(n[name] for n in by_path.values()),

@@ -12,6 +12,7 @@ ARCH_MODULES = [
     # the archs of the ported serving paths; the others join with their
     # slices
     "granite_moe_3b_a800m",
+    "h2o_danube_3_4b",
     "mistral_nemo_12b",
     "zamba2_7b",
 ]

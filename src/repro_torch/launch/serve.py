@@ -3,14 +3,17 @@ the port's serving engine.
 
 ``python -m repro_torch.launch.serve --requests 8`` serves a reduced
 mistral-nemo-12b (``--arch granite-moe-3b-a800m``: a reduced granite MoE,
-dropless routing unless ``--moe-routing capacity``; ``--arch zamba2-7b``:
-a reduced zamba2 hybrid on the dense-cache plane), as the JAX launcher
-does, on the CUDA card (``--device cpu`` for the plain PyTorch path),
-submits wire-encoded requests, drains them through chunked
-(``--prefill-chunk 0``: one-shot) prefill and batched paged decode (the
-hybrid: one-shot prefill into the dense cache and batched dense decode),
-and reports tokens, scheduler stats and the SimCXL-projected CXL-NIC vs
-PCIe-NIC host cost.  The options of the JAX launcher that belong to
+dropless routing unless ``--moe-routing capacity``; ``--arch
+h2o-danube-3-4b``: a reduced sliding-window model, window 16, on the paged
+plane; ``--arch zamba2-7b``: a reduced zamba2 hybrid on the dense-cache
+plane), as the JAX launcher does, on the CUDA card (``--device cpu`` for
+the plain PyTorch path), submits wire-encoded requests, drains them
+through chunked (``--prefill-chunk 0``: one-shot) prefill and batched
+paged decode (the hybrid: one-shot prefill into the dense cache and
+batched dense decode), and reports tokens, scheduler stats and the
+SimCXL-projected CXL-NIC vs PCIe-NIC host cost.  ``--prefix-cache``
+(with ``--shared-prefix-len``) shares the pages of a common prompt prefix
+copy-on-write.  The options of the JAX launcher that belong to
 planes not ported yet are accepted by name and refused with the slice
 that brings them.  Exits non-zero if any submitted request is never
 drained or fails.
@@ -39,10 +42,6 @@ def _refuse_unported(ap, args):
     checks = [
         (args.arrival != "all-at-once", f"--arrival {args.arrival}",
          "the asyncio engine (other paged engine planes)"),
-        (args.prefix_cache, "--prefix-cache",
-         "the prefix cache (other paged engine planes)"),
-        (bool(args.prefix_watermark), "--prefix-watermark",
-         "the prefix cache (other paged engine planes)"),
         (args.kv_overcommit != 1.0, "--kv-overcommit",
          "KV tiering (other paged engine planes)"),
         (args.kv_near_blocks is not None, "--kv-near-blocks",
@@ -80,14 +79,23 @@ def main(argv=None):
                          "halves of the chunk size)")
     ap.add_argument("--shared-prefix-len", type=int, default=0,
                     help="prepend one common random prefix of this many "
-                         "tokens to every request")
+                         "tokens to every request (the shared-system-"
+                         "prompt traffic --prefix-cache serves)")
+    ap.add_argument("--prefix-cache", action="store_true",
+                    help="copy-on-write KV prefix caching on the paged "
+                         "plane: requests sharing a block-aligned token "
+                         "prefix map the same refcounted pool pages "
+                         "instead of re-prefilling them")
+    ap.add_argument("--prefix-watermark", type=float, default=0.0,
+                    help="evict LRU cached prefixes each step until this "
+                         "fraction of the page pool is free (0 = evict "
+                         "only on allocation pressure); requires "
+                         "--prefix-cache")
     # options of the JAX launcher whose planes are later slices
     ap.add_argument("--arrival", default="all-at-once",
                     choices=ARRIVAL_PATTERNS)
     ap.add_argument("--rate", type=float, default=50.0)
     ap.add_argument("--no-paged-kv", action="store_true")
-    ap.add_argument("--prefix-cache", action="store_true")
-    ap.add_argument("--prefix-watermark", type=float, default=0.0)
     ap.add_argument("--kv-overcommit", type=float, default=1.0)
     ap.add_argument("--kv-near-blocks", type=int, default=None)
     ap.add_argument("--kv-demote-after", type=int, default=None)
@@ -108,6 +116,14 @@ def main(argv=None):
     if args.shared_prefix_len < 0:
         ap.error(f"--shared-prefix-len must be >= 0, got "
                  f"{args.shared_prefix_len}")
+    if args.prefix_cache and args.no_paged_kv:
+        ap.error("--prefix-cache requires the paged KV plane "
+                 "(drop --no-paged-kv)")
+    if args.prefix_watermark and not args.prefix_cache:
+        ap.error("--prefix-watermark requires --prefix-cache")
+    if not 0.0 <= args.prefix_watermark < 1.0:
+        ap.error(f"--prefix-watermark must be in [0, 1), got "
+                 f"{args.prefix_watermark}")
 
     cfg = reduced(get_config(args.arch))
     if args.no_paged_kv and cfg.family != "hybrid":
@@ -144,7 +160,9 @@ def main(argv=None):
             paged_kv=False if args.no_paged_kv else "auto",
             prefill_chunk=("auto" if args.prefill_chunk is None
                            else args.prefill_chunk),
-            prefill_buckets=args.prefill_buckets)
+            prefill_buckets=args.prefill_buckets,
+            prefix_cache=args.prefix_cache,
+            prefix_watermark=args.prefix_watermark)
     except ValueError as e:
         ap.error(str(e))
 
@@ -174,6 +192,11 @@ def main(argv=None):
           f"CXL {nic['cxl_us']:.1f}us ({nic['speedup_x']}x); "
           f"kv: {'paged' if kv['paged_kv'] else 'dense'} cache, "
           f"{kv['kv_tier']} tier, {kv['blocks_allocated']} blocks")
+    if args.prefix_cache:
+        pf = kv["prefix"]
+        print(f"[serve] prefix cache: {pf['hits']} hits "
+              f"({pf['hit_tokens']} tokens), {pf['entries']} entries "
+              f"resident, {pf['evicted']} evicted")
 
     undrained = args.requests - len(responses)
     if undrained or server.stats["failed"]:

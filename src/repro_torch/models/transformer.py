@@ -1,7 +1,8 @@
 """Decoder-only LM (PyTorch counterpart of ``repro/models/transformer.py``):
 the dense and moe families on the paged KV plane (the exact-length prompt
 forward of one-shot prefill, ``lm_prefill``, and its page write, chunked
-prefill, paged decode), and the zamba2-style hybrid family on the
+prefill, paged decode; with a sliding window too, whose one-shot rows come
+ring-packed as in JAX), and the zamba2-style hybrid family on the
 dense-cache plane (``lm_init_cache``, ``lm_prefill`` with ``max_len``,
 ``lm_decode_step``).
 
@@ -62,10 +63,13 @@ def require_dense_plane_family(cfg):
     is a later slice."""
     require_ported_family(cfg)
     if cfg.family not in _DENSE_PLANE_FAMILIES:
+        what = "the sliding-window ring (cache['pos']) of the dense " \
+            "(slots, max_len) KV cache" if cfg.sliding_window else \
+            "the dense (slots, max_len) KV cache"
         raise NotImplementedError(
-            f"the dense (slots, max_len) KV cache of family "
-            f"{cfg.family!r} is not ported yet: it comes with the port's "
-            f"slice for the dense-cache plane of the dense family")
+            f"{what} of family {cfg.family!r} is not ported yet: it comes "
+            f"with the port's slice for the dense-cache plane of the dense "
+            f"family")
 
 
 # --------------------------------------------------------------------------
@@ -173,13 +177,6 @@ def lm_init_paged_cache(cfg, batch: int, max_len: int, block_tokens: int = 16,
 # --------------------------------------------------------------------------
 # One-shot prefill: exact-length prompt forward, then one page write
 # --------------------------------------------------------------------------
-def _paged_swa_later():
-    return NotImplementedError(
-        "ring-packed sliding-window prefill rows are not ported yet: they "
-        "come with the port's slice for paged sliding-window attention "
-        "(the other paged engine planes)")
-
-
 def _attn_block(bp, x, cfg):
     """Pre-norm causal self-attention of the whole prompt, with residual;
     returns (x, (k, v))."""
@@ -243,7 +240,10 @@ def lm_prefill(params, cfg, tokens, max_len=None):
     sequence, as JAX's ``lm_hidden`` does.
 
     Dense and moe (paged plane, ``max_len=None`` only): cache {"k", "v":
-    (L, B, S, K, hd) in the compute dtype, "cur": S as a 0-d int32}.
+    (L, B, S, K, hd) in the compute dtype, "cur": S as a 0-d int32}.  With
+    a sliding window W the cache keeps the last T = min(W, S) positions in
+    JAX's ring order (row i holds the position p with p % T == i) and adds
+    "pos": (T,) int32, the position each row holds.
     Under capacity routing the MoE layers dispatch the whole (B, S) group
     at once, as in JAX.  Hybrid (dense-cache plane): {"k", "v": (n_groups,
     B, T, K, hd) with T = max_len or S, "ssm": (n_layers, B, h, hd, S) f32,
@@ -265,8 +265,6 @@ def lm_prefill(params, cfg, tokens, max_len=None):
                         "ssm": torch.stack([st["ssm"] for st in states]),
                         "conv": torch.stack([st["conv"] for st in states]),
                         "cur": cur}
-    if cfg.sliding_window:
-        raise _paged_swa_later()
     ks, vs = [], []
     for i in range(cfg.n_layers):
         bp = layer_params(params["blocks"], i)
@@ -276,7 +274,18 @@ def lm_prefill(params, cfg, tokens, max_len=None):
         vs.append(v)
     x = rmsnorm(x, params["final_norm"], cfg.norm_eps)
     logits = _logits(params, cfg, x[:, -1:])[:, 0]
-    return logits, {"k": torch.stack(ks), "v": torch.stack(vs), "cur": cur}
+    cache = {"k": torch.stack(ks), "v": torch.stack(vs), "cur": cur}
+    if cfg.sliding_window:
+        T = min(cfg.sliding_window, S)
+        # ring invariant: row i holds the position p in [S - T, S) with
+        # p % T == i, so row i reads prompt position ring[i]
+        ring = torch.arange(S - T, S, device=x.device)
+        ring = ring[torch.argsort(ring % T)]
+        src = ring - (S - T)
+        cache["k"] = cache["k"][:, :, S - T:][:, :, src]
+        cache["v"] = cache["v"][:, :, S - T:][:, :, src]
+        cache["pos"] = ring.to(torch.int32)
+    return logits, cache
 
 
 def lm_paged_prefill_write(cfg, pages, k_rows, v_rows, block_ids,
@@ -284,10 +293,13 @@ def lm_paged_prefill_write(cfg, pages, k_rows, v_rows, block_ids,
     """Scatter an admission group's prefilled KV into its pool pages.
 
     k_rows/v_rows: (L, G, T, K, hd) — the G rows of an ``lm_prefill``
-    cache (T = prompt_len); block_ids: (G * nb,) int page ids, row-major
-    (slot 0's nb blocks, then slot 1's, ...), each run in position order.
-    One fused in-place write installs the whole group, cast to the arena
-    dtype, and touches only the admitted slots' pages; returns the arena.
+    cache (T = prompt_len, or the ring-packed window of a sliding-window
+    config); block_ids: (G * nb,) int page ids, row-major (slot 0's nb
+    blocks, then slot 1's, ...), each run in position order.  One fused
+    in-place write installs the whole group, cast to the arena dtype, and
+    touches only the admitted slots' pages; returns the arena.  Ring rows
+    (T < prompt_len) are unpermuted to position order and land at
+    positions [S - T, S), zeros before: the window keeps those dead.
 
     ``skip_tokens`` (block-aligned, inside the prompt) drops the leading
     positions, whose pages a prefix-cache hit shares with other requests;
@@ -310,7 +322,11 @@ def lm_paged_prefill_write(cfg, pages, k_rows, v_rows, block_ids,
         S = S - skip_tokens
         T = T - skip_tokens
     if W and S > T:
-        raise _paged_swa_later()
+        # ring row i holds position p with p % T == i: unpermute to
+        # position order and place at [S - T, S)
+        src = torch.arange(S - T, S, device=k_rows.device) % T
+        k_rows = F.pad(k_rows[:, :, src], (0, 0, 0, 0, S - T, 0))
+        v_rows = F.pad(v_rows[:, :, src], (0, 0, 0, 0, S - T, 0))
     kp, vp = pages["kp"], pages["vp"]
     pad = (0, 0, 0, 0, 0, nb * bt - S)       # right-pad positions to nb * bt
     ids = block_ids.long()

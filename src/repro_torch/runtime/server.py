@@ -18,6 +18,13 @@ and on the dense-cache plane (the hybrid family, which has no paged path):
     (``model.paged_prefill_write``, ``_admit_group``);
   * DECODE slots advance one token per tick in one batched
     ``model.paged_decode_step`` (``_decode_tick``);
+  * sliding-window configs page too: ``KVBlockPager.release_behind`` frees
+    the blocks behind the window after each chunk and at each decode tick,
+    so a slot's footprint stays O(window);
+  * ``prefix_cache=True`` shares the pool pages of a block-aligned cached
+    prompt prefix copy-on-write (``KVBlockPager.admit_cached`` /
+    ``publish_prefix``): a chunked admission resumes at the hit, a
+    one-shot one writes only its tail blocks;
   * dense-cache plane: requests are admitted in equal-prompt-length waves
     (the shared write index ``cur``), each group of up to
     ``prefill_batch`` prefilled in one ``model.prefill`` to ``max_len``
@@ -29,8 +36,8 @@ hand-written kernels of ``kernels.ops``; on the CPU in the plain versions.
 
 Every option outside these planes raises, naming the later slice of the
 port that brings it: the dense cache of the dense and moe families
-(``paged_kv=False``), the prefix cache, KV tiering, paged sliding-window
-attention, disaggregated and asyncio engines.
+(``paged_kv=False``, with its sliding-window ring), KV tiering,
+disaggregated and asyncio engines.
 """
 from __future__ import annotations
 
@@ -160,9 +167,12 @@ class BatchServer:
             raise ValueError(f"paged_kv requested but model {cfg.family!r} "
                              f"has no paged decode path")
         if not paged_kv and has_paged:
-            raise _later("the dense (slots, max_len) KV cache plane "
-                         "(paged_kv=False) of the dense and moe families",
-                         "the dense-cache plane of the dense family")
+            what = "the sliding-window ring of the dense (slots, max_len) " \
+                "KV cache plane" if cfg.sliding_window else \
+                "the dense (slots, max_len) KV cache plane"
+            raise _later(f"{what} (paged_kv=False) of the dense and moe "
+                         f"families", "the dense-cache plane of the dense "
+                         "family")
         self.paged = bool(paged_kv)
         # prefill is chunk/pad-invariant iff routing decisions are a pure
         # per-token function: every family except capacity-factor MoE,
@@ -188,16 +198,24 @@ class BatchServer:
                 "capacity-factor MoE drops depend on co-resident "
                 "tokens; serve with cfg.moe_routing='dropless' or "
                 "use prefill_chunk=0")
-        if prefix_cache or prefix_watermark:
-            raise _later("the KV prefix cache (prefix_cache)",
-                         "the other paged engine planes")
         if kv_overcommit != 1.0 or kv_near_blocks is not None \
                 or kv_demote_after is not None:
             raise _later("KV tiering (kv_overcommit / kv_near_blocks / "
                          "kv_demote_after)", "the other paged engine planes")
-        if cfg.sliding_window:
-            raise _later("paged sliding-window attention with "
-                         "release_behind", "the other paged engine planes")
+        # prefix caching shares KV pool pages across requests whose
+        # prompts extend a block-aligned cached prefix; off by default —
+        # retained prefixes keep pool pages referenced past request drain
+        if prefix_cache and not self.paged:
+            raise ValueError("prefix_cache requires the paged KV plane "
+                             "(paged_kv)")
+        if not 0.0 <= prefix_watermark < 1.0:
+            raise ValueError(f"prefix_watermark must be in [0, 1), got "
+                             f"{prefix_watermark}")
+        self.prefix_cache = bool(prefix_cache)
+        self.prefix_watermark = float(prefix_watermark)
+        # paged sliding-window attention: release_behind frees the blocks
+        # behind the window as it advances
+        self.window = int(cfg.sliding_window or 0)
 
         self.model = model
         self.device = resolve_device(device)
@@ -248,7 +266,8 @@ class BatchServer:
                                   paged=True, pool=pool,
                                   params_bytes=_tree_nbytes(self.params),
                                   hbm_budget=hbm, track_table=self.paged,
-                                  footprint=footprint)
+                                  footprint=footprint,
+                                  prefix_cache=self.prefix_cache)
         # the model sized the arena, the pager sized the page table: every
         # page id must address a real (non-trash) arena page
         if self.paged:
@@ -370,10 +389,30 @@ class BatchServer:
 
         tw = time.perf_counter()
         if self.paged:
-            ids = [p for slot in slot_arr for p in self.pager.admit(slot, S)]
+            # ring-packed sliding-window rows (S > window) leave zero KV in
+            # their leading positions: those pages must be neither
+            # acquired from nor published into the prefix cache
+            shareable = not (self.window and S > self.window)
+            skip = 0
+            if self.prefix_cache and len(reqs) == 1 and shareable:
+                # map the shared prefix pages (refcounts, no allocation)
+                # and write ONLY the tail blocks: shared pages are
+                # immutable for their co-resident readers
+                skip, ids = self.pager.admit_cached(slot_arr[0],
+                                                    reqs[0].prompt, S)
+                if skip:
+                    self.niccost.on_prefix_share(
+                        skip // self.pager.block_tokens,
+                        self.pager.block_bytes)
+            else:
+                ids = [p for slot in slot_arr
+                       for p in self.pager.admit(slot, S)]
             self.pages = self._page_write(
                 self.pages, cache1["k"], cache1["v"],
-                self._to_device(np.asarray(ids, np.int32)), S)
+                self._to_device(np.asarray(ids, np.int32)), S, skip)
+            if self.prefix_cache and shareable:
+                for slot, req in zip(slot_arr, reqs):
+                    self.pager.publish_prefix(slot, req.prompt)
         else:
             self.cache = _splice_rows_tree(
                 self.cache, cache1, self._to_device(
@@ -423,6 +462,13 @@ class BatchServer:
             if self.prefill_chunk:
                 self._admit_chunked(req, now)
                 continue
+            if self.prefix_cache and self.pager.match_prefix(req.prompt):
+                # cached-prefix one-shot admissions go as singleton
+                # groups: the page write's skip count is one per group
+                flush()
+                group.append(req)
+                flush()
+                continue
             if group and (len(group) >= self.prefill_batch
                           or len(req.prompt) != len(group[0].prompt)):
                 flush()
@@ -436,7 +482,16 @@ class BatchServer:
         comes out of the final chunk."""
         req.to(RequestState.PREFILL, now)
         self.table.bind(req)
-        self.pager.admit(req.slot, 0)
+        if self.prefix_cache:
+            hit, _ = self.pager.admit_cached(req.slot, req.prompt, 0)
+            if hit:
+                # resume mid-prompt: positions [0, hit) are already
+                # resident in shared pages
+                req.prefilled = hit
+                self.niccost.on_prefix_share(
+                    hit // self.pager.block_tokens, self.pager.block_bytes)
+        else:
+            self.pager.admit(req.slot, 0)
         req.to(RequestState.PREFILLING, now)
         self.stats["admitted"] += 1
 
@@ -510,10 +565,20 @@ class BatchServer:
         now = time.perf_counter()
         for slot, req in pre.items():
             req.prefilled += step_v[slot]
+            if self.window:
+                # the next query position is >= req.prefilled: everything
+                # behind its window is dead for every future step
+                self.pager.release_behind(
+                    slot, max(0, req.prefilled - self.window + 1))
             if req.prefilled >= len(req.prompt):
                 req.generated.append(int(nxt[slot]))
                 req.to(RequestState.DECODE, now)
                 self.stats["prefills"] += 1
+                if self.prefix_cache:
+                    # chunk writes are position-exact, so the complete
+                    # prompt blocks are publishable; window-released
+                    # leading blocks (-1 entries) end the chain
+                    self.pager.publish_prefix(slot, req.prompt)
 
     def _masked_block_table(self, live, nb: Optional[int] = None):
         """Owned copy of the pager's block table with the rows of every
@@ -540,6 +605,10 @@ class BatchServer:
         batched decode step over the DECODE slots."""
         now = time.perf_counter()
         self.stats["ticks"] += 1
+        if self.prefix_cache and self.prefix_watermark:
+            # proactive LRU eviction keeps free-page headroom for
+            # incoming admissions
+            self.pager.evict_to_watermark(self.prefix_watermark)
         if self._unbilled_tickets:
             self.niccost.on_ticket_batch(self._unbilled_tickets)
             self._unbilled_tickets = 0
@@ -571,6 +640,13 @@ class BatchServer:
                 # grow the block list so the incoming token's page exists
                 # before the kernel computes its write location
                 self.pager.advance(slot, req.pos)
+                if self.window:
+                    # blocks wholly behind this (and every later) query's
+                    # window go back to the free list; the decode kernel
+                    # reads from lens - window + 1 on, which stays inside
+                    # the blocks kept
+                    self.pager.release_behind(
+                        slot, max(0, req.pos - self.window))
             nb = self._decode_bucket(int(lens.max()) + 1)
             # PREFILLING slots hold live table rows but must be neither
             # attended nor written by the decode step

@@ -702,3 +702,50 @@ def test_rao_kernel_matches_plain_on_card(cuda, case, dtype, tol):
     assert ops.LAUNCHES["rao_scatter_add_onchip"] == \
         before["rao_scatter_add_onchip"] + (dtype == torch.bfloat16)
     torch.testing.assert_close(got.float(), exp.float(), atol=tol, rtol=tol)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
+                         ids=["f32", "bf16"])
+def test_rao_kernel_random_hot_rows_on_card(cuda, dtype):
+    """Granite's largest tick (N 513, M 20480, D 1536; 80% of the ids on
+    the pad row, as dropless routing pads) with random values, so the
+    hot rows' sums are not exact in f32 and depend on the order of the
+    adds, which the kernel does not fix.  Bound, per element: one ulp of
+    the dtype at |result| (the two roundings of nearby f32 sums) plus
+    twice the f32 sum error of the row's n adds, gamma_n = n u / (1 - n
+    u) with u = 2^-24, times the sum of the magnitudes added (Higham's
+    bound for recursive summation in any order, for each of the two
+    sums)."""
+    rng = np.random.RandomState(13)
+    N, D, M = 513, 1536, 20480
+    idx = rng.randint(0, N, size=M).astype(np.int32)
+    idx[rng.rand(M) < 0.8] = N - 1
+    table = rng.randn(N, D).astype(np.float32)
+    vals = rng.randn(M, D).astype(np.float32)
+    table_d, vals_d = (_t(a).to(cuda, dtype) for a in (table, vals))
+    idx_d = _t(idx).to(cuda)
+    exp = ref.rao_scatter_add(table_d, idx_d, vals_d).float()
+    before = dict(ops.LAUNCHES)
+    got = ops.rao_scatter_add(table_d.clone(), idx_d, vals_d).float()
+    torch.cuda.synchronize()
+    assert ops.LAUNCHES["rao_scatter_add"] == before["rao_scatter_add"] + 1
+    assert ops.LAUNCHES["rao_scatter_add_onchip"] == \
+        before["rao_scatter_add_onchip"] + (dtype == torch.bfloat16)
+    # magnitudes and counts of each row's terms, from the values the
+    # kernel read (rounded to the dtype)
+    mag = table_d.float().abs().index_add_(0, idx_d.long(),
+                                           vals_d.float().abs())
+    n = torch.ones(N, device=cuda).index_add_(
+        0, idx_d.long(), torch.ones(M, device=cuda))[:, None]
+    u = 2.0 ** -24
+    gamma = n * u / (1 - n * u)
+    big = torch.maximum(got.abs(), exp.abs())
+    _, e = torch.frexp(big)
+    mant = 8 if dtype == torch.bfloat16 else 24
+    ulp = torch.ldexp(torch.ones_like(big), e - mant)
+    bound = ulp + 2 * gamma * mag
+    err = (got - exp).abs()
+    assert bool(torch.isfinite(got).all())
+    assert bool((err <= bound).all()), float((err - bound).max())
+    # the hot row really carries the sum error the bound is built on
+    assert float(n[-1]) > 16000

@@ -408,10 +408,13 @@ def test_lm_prefill_matches_jax(name):
 
 
 def test_lm_prefill_refuses_sliding_window_by_name():
+    """The paged plane's exact-length prefill takes a window; the dense
+    ring (``max_len`` given) is still a later slice, refused by name."""
     _, tcfg = _configs(sliding_window=8)
     params = build_model(tcfg).init(torch.Generator().manual_seed(0), "cpu")
-    with pytest.raises(NotImplementedError, match="sliding-window"):
-        ttr.lm_prefill(params, tcfg, torch.ones((1, 9), dtype=torch.int32))
+    with pytest.raises(NotImplementedError, match="sliding-window ring"):
+        ttr.lm_prefill(params, tcfg, torch.ones((1, 9), dtype=torch.int32),
+                       max_len=16)
 
 
 # ------------------------------------------------------------ page write
@@ -456,15 +459,6 @@ def test_paged_prefill_write_errors_as_jax(skip, window, T, words):
                                    jnp.asarray(k_rows), jnp.asarray(ids), 19,
                                    skip)
     assert str(tex.value) == str(jex.value)
-
-
-def test_paged_prefill_write_refuses_ring_rows_by_name():
-    _, tcfg = _configs(sliding_window=8)
-    rows = torch.zeros((2, 1, 8, 2, 16))
-    pages = ttr.lm_init_paged_cache(tcfg, 1, 24, 8, device="cpu")
-    with pytest.raises(NotImplementedError, match="sliding-window"):
-        ttr.lm_paged_prefill_write(tcfg, pages, rows, rows,
-                                   torch.arange(3, dtype=torch.int32), 19)
 
 
 # ------------------------------------------------------------ engine

@@ -94,7 +94,6 @@ def test_engine_wire_outputs_match_jax(setup, plane):
 
 UNPORTED = {
     "dense-cache": (dict(paged_kv=False), "dense-cache plane"),
-    "prefix-cache": (dict(prefix_cache=True), "prefix cache"),
     "tiering": (dict(kv_overcommit=2.0), "tiering"),
     "tiering-near": (dict(kv_near_blocks=4), "tiering"),
 }
@@ -110,11 +109,14 @@ def test_engine_refuses_unported_planes_by_name(setup, name):
 
 
 def test_engine_refuses_sliding_window():
+    """The paged plane serves a window; the dense-cache plane's ring
+    (paged_kv=False) is still a later slice, refused by name."""
     tcfg = reduced(get_config("mistral-nemo-12b")).replace(
         sliding_window=16, **TINY)
-    with pytest.raises(NotImplementedError, match="sliding-window"):
+    with pytest.raises(NotImplementedError,
+                       match="sliding-window ring.*paged_kv=False"):
         BatchServer(build_model(tcfg), batch_slots=2, max_len=MAX_LEN,
-                    device="cpu", nic_cost=None)
+                    device="cpu", nic_cost=None, paged_kv=False)
 
 
 def test_engine_without_card_raises_unless_cpu_requested(setup):
@@ -160,8 +162,7 @@ def test_launcher_drains_on_cpu(capsys):
 
 
 @pytest.mark.parametrize("argv", [
-    ["--no-paged-kv"], ["--prefix-cache"],
-    ["--prefix-watermark", "0.5"], ["--kv-overcommit", "2"],
+    ["--no-paged-kv"], ["--kv-overcommit", "2"],
     ["--kv-near-blocks", "4"], ["--kv-demote-after", "3"], ["--disagg"],
     ["--prefill-slots", "2"], ["--arrival", "poisson"],
 ], ids=lambda a: a[0].lstrip("-"))
