@@ -2,9 +2,10 @@
 kernels from this checkout and drives the serving engine on one card:
 the paged plane for the dense family (mistral-nemo-12b) and the moe
 family (granite-moe-3b-a800m), each with chunked and with one-shot
-prefill, the dense-cache plane for the hybrid family (zamba2-7b), and
-the paged sliding-window plane (h2o-danube-3-4b, window 4096), chunked,
-one-shot and with the copy-on-write prefix cache.
+prefill, mistral-nemo-12b also on the tiered near/far KV arena and on
+the asyncio engine, the dense-cache plane for the hybrid family
+(zamba2-7b), and the paged sliding-window plane (h2o-danube-3-4b, window
+4096), chunked, one-shot and with the copy-on-write prefix cache.
 
     python3 chip_smoke.py            # every phase; needs one CUDA card
     python3 chip_smoke.py --quick    # device, build, kernel checks only
@@ -118,7 +119,13 @@ Phases (each prints its own lines and wall time; any failure raises):
                 5-layer hybrid (2 groups of 2 Mamba2 layers and a tail
                 layer) on the dense-cache plane with prefill_batch 4 (a
                 trace of equal-length neighbours, so admission groups and
-                waves form);
+                waves form); then the tiered engines at one slot's worth of
+                near frames (kv_near_blocks 2 of 6 pages): dense, danube
+                (window 16) and dropless MoE, chunked, each also untiered
+                on the card, with demotions and promotions on both devices
+                and tokens identical across the three runs; and the
+                asyncio dense engine (AsyncBatchServer, every request at
+                once through run_closed_loop);
   5. serve    — full-width 40-layer mistral-nemo-12b, chunked and then
                 one-shot (prefill_chunk=0), then (its params freed)
                 full-width 32-layer granite-moe-3b-a800m, dropless chunked
@@ -202,7 +209,30 @@ Phases (each prints its own lines and wall time; any failure raises):
                 library, SDPA over the gathered KV and the plain version;
                 both paged kernels also at the danube chunked path's
                 calls with the most work (SDPA's mask with the window);
-  7. prefix   — two more serve paths (phase_serve and its checks):
+  7. tiered and async — three more full-width mistral-nemo-12b paths
+                through phase_serve, chunked, 16 requests of 32 new
+                tokens: "mistral tiered flat" (max_len 1,024, prompts
+                uniform in [512, 960]) and "mistral tiered", the same
+                trace at kv_overcommit=2 (256 near frames of the 512-page
+                pool, 2,621,440 bytes a page; warmup_migrations() before
+                the first request): every migration event's destination
+                frames equal their sources byte for byte (MigrationCheck,
+                the swap case included), with demotions and promotions
+                both above 0; every recorded paged-kernel call read an
+                arena of near_frames + 1 pages through table ids in [-1,
+                near_frames) (check_tables); after the drain nothing is
+                resident near or far and allocated equals freed; each
+                request's first-token logits lie within 2e-2 normwise of
+                the flat twin's; then "mistral async": AsyncBatchServer
+                with the "mistral chunked" configuration and prompts,
+                Poisson arrivals at 4 requests a second
+                (loadgen.make_trace, seed 0) driven by run_closed_loop:
+                every request completes, no future is left, TTFT p50 /
+                p99 from collect_metrics, first-token logits within 2e-2
+                of the sync chunked run's; tier counters, the SimCXL
+                migration cost (nic_report()["kv_migrate"]) and each
+                path's TTFT and tok/s are printed;
+  8. prefix   — two more serve paths (phase_serve and its checks):
                 full-width h2o-danube-3-4b chunked, a cold run and then a
                 prefix_cache=True run of 8 requests sharing a 1,024-token
                 prefix (tails of 1 to 3,500 tokens; the first request
@@ -218,6 +248,7 @@ the repository beside it, the script exits non-zero and prints no result.
 from __future__ import annotations
 
 import argparse
+import gc
 import json
 import re
 import statistics
@@ -239,8 +270,12 @@ from repro_torch.device import H100_HBM_STREAM_GBs  # noqa: E402
 from repro_torch.kernels import build, ops, ref  # noqa: E402
 from repro_torch.models import transformer  # noqa: E402
 from repro_torch.models.model import build_model  # noqa: E402
+from repro_torch.runtime.loadgen import (  # noqa: E402
+    make_trace, run_closed_loop,
+)
+from repro_torch.runtime.scheduler import blocks_for  # noqa: E402
 from repro_torch.runtime.server import (  # noqa: E402
-    BatchServer, encode_request,
+    AsyncBatchServer, BatchServer, encode_request,
 )
 
 HBM_BYTES_PER_S = H100_HBM_STREAM_GBs * 1e9   # H100 SXM, published
@@ -1056,14 +1091,24 @@ def grouped_trace(vocab):
             for n, m in [(6, 3)] * 4 + [(11, 2)] * 3 + [(6, 4), (20, 3)]]
 
 
-def drain_outputs(srv, trace):
-    for i, (p, m) in enumerate(trace):
-        srv.submit_wire(encode_request(i, p, m))
+def decode_outputs(bufs):
     out = {}
-    for buf in srv.run_until_drained():
+    for buf in bufs:
         msg = wire.decode(buf, {1: "int", 2: "bytes"})
         out[msg[1]] = np.frombuffer(msg[2], np.int32).tolist()
     return out
+
+
+def drain_outputs(srv, trace):
+    wires = [encode_request(i, p, m) for i, (p, m) in enumerate(trace)]
+    if isinstance(srv, AsyncBatchServer):
+        # every request at once through the engine coroutine
+        bufs, _ = run_closed_loop(srv, wires,
+                                  make_trace("all-at-once", len(wires)))
+        return decode_outputs(bufs)
+    for w in wires:
+        srv.submit_wire(w)
+    return decode_outputs(srv.run_until_drained())
 
 
 TINY = dict(n_layers=2, d_model=32, n_heads=2, n_kv_heads=2, head_dim=16,
@@ -1076,12 +1121,17 @@ BF16_ONLY = ("paged_attention_split", "paged_prefill_attention_mma",
              "flash_attention_mma", "moe_gmm_wgmma", "rao_scatter_add_onchip")
 
 
+TIER_KNOBS = ("kv_overcommit", "kv_near_blocks", "kv_demote_after")
+
+
 def leaked(srv):
-    """Pages (paged plane) or pool blocks (dense plane) still held after a
-    drain."""
+    """Pages (paged plane, near or far) or pool blocks (dense plane) still
+    held after a drain."""
     kv = srv.kv_stats()
     if kv["paged_kv"]:
-        return kv["paged"]["pages_in_use"]
+        far = kv["tier"]["far_resident"] if kv["tiered"] else 0
+        return kv["paged"]["pages_in_use"] + far + \
+            kv["blocks_allocated"] - kv["blocks_freed"]
     return kv["blocks_allocated"] - kv["blocks_freed"]
 
 
@@ -1090,12 +1140,17 @@ def phase_tiny():
     """Tiny f32 engines on the card (kernels) and on the CPU (plain):
     dense and dropless MoE (8 experts, top-2) chunked, then dense one-shot
     with prefill_batch 1 and 4, capacity-routed MoE one-shot with
-    prefill_batch 4, and the 5-layer hybrid (layout 2 x 2 + 1 tail) on the
-    dense-cache plane with prefill_batch 4."""
+    prefill_batch 4, the 5-layer hybrid (layout 2 x 2 + 1 tail) on the
+    dense-cache plane with prefill_batch 4, then the tiered engines at one
+    slot's worth of near frames (dense, danube with its window of 16,
+    dropless MoE; each also untiered on the card) and the asyncio dense
+    engine."""
     dense = reduced(get_config(DENSE_ARCH)).replace(**TINY)
     moe = reduced(get_config(MOE_ARCH)).replace(**TINY)
     hybrid = reduced(get_config(HYBRID_ARCH)).replace(**dict(TINY,
                                                              n_layers=5))
+    swa = reduced(get_config(SWA_ARCH)).replace(**TINY)
+    one_slot = dict(kv_near_blocks=blocks_for(32, 16))    # max_len, bt
     engines = (
         ("dense chunked", dense, {}, tiny_trace, 3, CHUNKED_KERNELS),
         ("moe dropless chunked", moe.replace(moe_routing="dropless"), {},
@@ -1109,18 +1164,47 @@ def phase_tiny():
          dict(prefill_batch=4), grouped_trace, 4, ONESHOT_KERNELS + MOE),
         ("hybrid dense pfb4", hybrid, dict(prefill_batch=4), grouped_trace,
          4, HYBRID_KERNELS),
+        ("dense tiered", dense, one_slot, tiny_trace, 3, CHUNKED_KERNELS),
+        ("danube tiered", swa, one_slot, tiny_trace, 3, CHUNKED_KERNELS),
+        ("moe dropless tiered", moe.replace(moe_routing="dropless"),
+         one_slot, tiny_trace, 3, CHUNKED_KERNELS + MOE),
+        ("dense async", dense, dict(engine=AsyncBatchServer), tiny_trace, 3,
+         CHUNKED_KERNELS),
     )
-    for label, cfg, kw, make_trace, slots, kernels in engines:
+    for label, cfg, kw, trace_of, slots, kernels in engines:
         model = build_model(cfg)
         params = model.init(torch.Generator().manual_seed(3), "cpu")
-        trace = make_trace(cfg.vocab)
+        trace = trace_of(cfg.vocab)
+        kw = dict(kw)
+        cls = kw.pop("engine", BatchServer)
         outs = {}
-        for dev in ("cpu", "cuda"):
+        tier = ""
+        # a tiered engine's twin: the same engine untiered, on the card
+        runs = ["cpu", "cuda"] + (["cuda untiered"]
+                                  if set(kw) & set(TIER_KNOBS) else [])
+        for run in runs:
+            dev = run.split()[0]
             p = params if dev == "cpu" else _tree_to(params, DEV)
             before = dict(ops.LAUNCHES)
-            srv = BatchServer(model, batch_slots=slots, max_len=32, params=p,
-                              device=dev, nic_cost=None, **kw)
-            outs[dev] = drain_outputs(srv, trace)
+            run_kw = {k: v for k, v in kw.items() if k not in TIER_KNOBS} \
+                if run == "cuda untiered" else kw
+            srv = cls(model, batch_slots=slots, max_len=32, params=p,
+                      device=dev, nic_cost=None, **run_kw)
+            if srv.tiered:
+                srv.warmup_migrations()
+            outs[run] = drain_outputs(srv, trace)
+            if run_kw is kw and bool(srv.tiered) != bool(
+                    set(kw) & set(TIER_KNOBS)):
+                raise AssertionError(f"tiny {label}: tiering is "
+                                     f"{srv.tiered}")
+            if srv.tiered and not (srv.pager.demotions and
+                                   srv.pager.promotions):
+                raise AssertionError(f"tiny {label} {run}: no migration at "
+                                     f"one slot's worth of near frames")
+            if srv.tiered and run == "cuda":
+                t = srv.kv_stats()["tier"]
+                tier = f"; {t['demotions']} demotions, {t['promotions']} " \
+                    f"promotions at {t['near_frames']} near frames"
             launched = {k: ops.LAUNCHES[k] - before[k] for k in before}
             if leaked(srv):
                 raise AssertionError(f"{label} {dev}: pages leaked")
@@ -1140,11 +1224,12 @@ def phase_tiny():
             if dev == "cpu" and any(launched.values()):
                 raise AssertionError(f"the CPU {label} engine launched a "
                                      f"kernel")
-        same = outs["cpu"] == outs["cuda"]
+        same = all(o == outs["cpu"] for o in outs.values())
         st = srv.stats
         print(f"[tiny] {label} ({cfg.family}): {len(outs['cuda'])} requests,"
               f" {st['prefills']} prefills, {st['prefill_chunks']} chunk "
-              f"ticks; greedy tokens identical card vs CPU: {same}")
+              f"ticks{tier}; greedy tokens identical "
+              f"{' vs '.join(outs)}: {same}")
         if not same or len(outs["cuda"]) != len(trace):
             raise AssertionError(f"tiny {label} engine tokens differ:\n"
                                  f"{outs}")
@@ -1200,7 +1285,20 @@ PATHS = {
     "danube prefix cold": (SWA_ARCH, "chunked prefix cold", None, {}),
     "danube prefix": (SWA_ARCH, "chunked prefix", None,
                       dict(prefix_cache=True)),
+    "mistral tiered flat": (DENSE_ARCH, "tiered flat", None, {}),
+    "mistral tiered": (DENSE_ARCH, "tiered", None,
+                       dict(kv_overcommit=2.0)),
+    "mistral async": (DENSE_ARCH, "async", None, {}),
 }
+# the tiered paths' engines hold 1,024 tokens a slot: 8 x 64 = 512 pages
+# of 16 tokens, of which kv_overcommit=2 leaves 256 near frames; prompts
+# of 512-960 tokens (32 new) want up to 62 blocks a slot, so 8 slots'
+# working sets overflow the near tier and engagement has to rotate
+TIERED_MAX_LEN = 1024
+TIERED_PATHS = ("mistral tiered flat", "mistral tiered")
+# the async path: AsyncBatchServer driven by run_closed_loop, requests
+# arriving as a Poisson process at 4 a second (loadgen.make_trace, seed 0)
+ASYNC_PATHS = {"mistral async": dict(pattern="poisson", rate_rps=4.0)}
 # the sliding-window paths' engines hold 8,448 tokens a slot and serve
 # prompts past the window: chunked 4 short ones and 4,096 / 4,101 / 6,000
 # / 8,195 tokens; one-shot a group of 4 x 300 and one of 4 x 5,000 (ring-
@@ -1210,6 +1308,8 @@ PATH_PROMPTS = {
     "danube chunked": lambda rng: np.concatenate(
         [rng.randint(17, 301, size=4), [4096, 4101, 6000, 8195]]),
     "danube one-shot": lambda rng: np.repeat([300, 5000], 4),
+    "mistral tiered flat": lambda rng: rng.randint(512, 961, size=16),
+    "mistral tiered": lambda rng: rng.randint(512, 961, size=16),
 }
 # the prefix paths: 8 requests that share a 1,024-token prefix (a multiple
 # of the chunk and the block), cold and with the prefix cache; the first
@@ -1269,6 +1369,66 @@ class SharedPages:
                 torch.equal(pages["vp"][:, ids], v0)):
             raise AssertionError(f"a shared prefix page changed after tick "
                                  f"{self.ticks}")
+
+
+class MigrationCheck:
+    """The tiered run's migration check: wraps the engine's migrate
+    callable, keeps a copy of every real source frame before each event
+    (pads are trash-to-trash and skipped) and holds each destination
+    frame to it byte for byte after the event.  Counts the events, the
+    pages each way, and the swaps: a near frame that one event both
+    demotes and refills, or a far frame it both promotes and refills."""
+
+    def __init__(self, srv):
+        self.srv = srv
+        self.fn = srv._kv_migrate
+        self.events = self.demoted = self.promoted = self.swaps = 0
+        srv._kv_migrate = self
+
+    def __call__(self, near, far, ds, dd, ps, pd):
+        nt, ft = self.srv.pager.near_frames, self.srv.pager.far_frames
+        dem = [(s, d) for s, d in zip(ds.tolist(), dd.tolist()) if s != nt]
+        pro = [(s, d) for s, d in zip(ps.tolist(), pd.tolist()) if s != ft]
+        if any(d == ft for _, d in dem) or any(d == nt for _, d in pro):
+            raise AssertionError(f"a real page migrates into a trash frame: "
+                                 f"{dem} {pro}")
+        srcs = {name: (near[name][:, [s for s, _ in dem]].clone(),
+                       far[name][:, [s for s, _ in pro]].clone())
+                for name in ("kp", "vp")}
+        near, far = self.fn(near, far, ds, dd, ps, pd)
+        for name, (dk, pk) in srcs.items():
+            if not (torch.equal(far[name][:, [d for _, d in dem]], dk) and
+                    torch.equal(near[name][:, [d for _, d in pro]], pk)):
+                raise AssertionError(f"migration event {self.events}: a "
+                                     f"{name} frame differs from its source "
+                                     f"({dem}, {pro})")
+        self.events += 1
+        self.demoted += len(dem)
+        self.promoted += len(pro)
+        self.swaps += len({s for s, _ in dem} & {d for _, d in pro}) + \
+            len({d for _, d in dem} & {s for s, _ in pro})
+        return near, far
+
+
+def check_tables(srv, recs):
+    """Every recorded paged-kernel call of a tiered run read an arena of
+    near_frames + 1 pages through a table of ids in [-1, near_frames): a
+    CUDA kernel does not clamp an id past its arena as JAX's gather
+    does.  Returns the number of calls checked."""
+    nf = srv.pager.near_frames
+    n = 0
+    for key in ("paged_attention", "paged_prefill_attention"):
+        for args, _ in recs[key]:
+            kp, btab = args[1], args[3]
+            if kp.shape[0] != nf + 1:
+                raise AssertionError(f"{key} read an arena of {kp.shape[0]}"
+                                     f" pages, the near tier has {nf} + 1")
+            lo, hi = int(btab.min()), int(btab.max())
+            if lo < -1 or hi >= nf:
+                raise AssertionError(f"{key} table ids span [{lo}, {hi}], "
+                                     f"outside [-1, {nf})")
+            n += 1
+    return n
 
 
 def norms_per_call(cfg):
@@ -1337,11 +1497,23 @@ def phase_serve(path, card, seed=0):
           f"{cfg.head_dim}, {ffn}, vocab {cfg.vocab}; "
           f"{n_params / 1e9:.2f} B bf16 params initialised in "
           f"{time.perf_counter() - t0:.1f} s")
-    max_len = SWA_MAX_LEN if cfg.sliding_window else 512
-    srv = BatchServer(model, batch_slots=8, max_len=max_len,
-                      block_tokens=16, params=params, device=DEV,
-                      sync_timers=True, **kw)
+    max_len = SWA_MAX_LEN if cfg.sliding_window else \
+        TIERED_MAX_LEN if path in TIERED_PATHS else 512
+    engine = AsyncBatchServer if path in ASYNC_PATHS else BatchServer
+    srv = engine(model, batch_slots=8, max_len=max_len, block_tokens=16,
+                 params=params, device=DEV, sync_timers=True, **kw)
     del params
+    migrations = None
+    if srv.tiered:
+        t0 = time.perf_counter()
+        srv.warmup_migrations()
+        print(f"[serve] {path}: {srv.pager.near_frames} near frames of "
+              f"{srv.pager.n_pages} pages ({srv.pager.far_frames} far), "
+              f"{srv.pager.block_bytes} bytes a page, near arena "
+              f"{tuple(srv.pages['kp'].shape)}, far arena "
+              f"{tuple(srv.far_pages['kp'].shape)}; migrations warmed up "
+              f"in {time.perf_counter() - t0:.3f} s [{card}]")
+        migrations = MigrationCheck(srv)
     oneshot = srv.prefill_chunk == 0
     rng = np.random.RandomState(seed)
     if path in PATH_WAVES:
@@ -1359,8 +1531,9 @@ def phase_serve(path, card, seed=0):
                   for n in plens]]
     n_req = sum(len(w) for w in waves)
     prompt_toks = sum(len(p) for w in waves for p in w)
-    for i, p in enumerate(waves[0]):
-        srv.submit_wire(encode_request(i, p, 32))
+    if path not in ASYNC_PATHS:     # the async path submits on its trace
+        for i, p in enumerate(waves[0]):
+            srv.submit_wire(encode_request(i, p, 32))
     finite = []
     group_rows = []
     first = {}      # request -> its first token's logits (chunked paths)
@@ -1378,8 +1551,11 @@ def phase_serve(path, card, seed=0):
         def run(*a):
             lg, out = step(*a)
             for slot, req in srv.active.items():
+                # a tiered tick chunks only its engaged slots
                 if req.state.name == "PREFILLING" and \
-                        len(req.prompt) - req.prefilled <= srv.prefill_chunk:
+                        len(req.prompt) - req.prefilled <= \
+                        srv.prefill_chunk and \
+                        (srv._engaged is None or slot in srv._engaged):
                     first[req.req_id] = lg[slot].clone()
             return lg, out
         return run
@@ -1432,11 +1608,19 @@ def phase_serve(path, card, seed=0):
     torch.cuda.synchronize()
     ops.reset_launches()
     t0 = time.perf_counter()
+    metrics = None
     with ExitStack() as stack:
         for r in recorders:
             stack.enter_context(r)
         bufs = []
         n_in = len(waves[0])
+        if path in ASYNC_PATHS:
+            wires = [encode_request(i, p, 32)
+                     for i, p in enumerate(waves[0])]
+            arrivals = make_trace(n=len(wires), seed=seed,
+                                  **ASYNC_PATHS[path])
+            out, metrics = run_closed_loop(srv, wires, arrivals)
+            bufs.extend(out)
         for wave in waves[1:]:      # step until every prompt so far is in
             while len(srv.queue) or any(r.state.name == "PREFILLING"
                                         for r in srv.active.values()):
@@ -1447,7 +1631,8 @@ def phase_serve(path, card, seed=0):
             for i, p in enumerate(wave, n_in):
                 srv.submit_wire(encode_request(i, p, 32))
             n_in += len(wave)
-        bufs.extend(srv.run_until_drained())
+        if path not in ASYNC_PATHS:
+            bufs.extend(srv.run_until_drained())
         torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     launches = dict(ops.LAUNCHES)
@@ -1483,11 +1668,56 @@ def phase_serve(path, card, seed=0):
           f"{st['decode_wall_s']:.3f} s = "
           f"{st['decode_tokens'] / st['decode_wall_s']:.1f} tok/s [{card}]")
     ttft = sorted(r.first_token_t - r.arrival_t for r in srv.completed_reqs)
-    sent = f"all {n_req} submitted at once" if len(waves) == 1 else \
+    sent = f"{n_req} arriving as {ASYNC_PATHS[path]}" \
+        if path in ASYNC_PATHS else f"all {n_req} submitted at once" \
+        if len(waves) == 1 else \
         f"{n_req} submitted in waves of {[len(w) for w in waves]}"
     print(f"[serve] {name} TTFT (submission to first token, {sent}): median {statistics.median(ttft):.3f} s, "
           f"max {ttft[-1]:.3f} s [{card}]")
+    if metrics is not None:
+        m = metrics.to_dict()
+        print(f"[serve] {name} load ({ASYNC_PATHS[path]}, seed {seed}, "
+              f"collect_metrics): {m['completed']}/{m['n_requests']} "
+              f"completed in {m['makespan_s']} s; TTFT p50 "
+              f"{m['ttft_p50_ms']} ms, p99 {m['ttft_p99_ms']} ms; latency "
+              f"p50 {m['latency_p50_ms']} ms, p99 {m['latency_p99_ms']} ms; "
+              f"{m['tokens_per_s']} tok/s over the makespan; slot "
+              f"utilization {m['slot_utilization']}; decode "
+              f"{st['decode_tokens'] / st['decode_wall_s']:.1f} tok/s; "
+              f"futures left {len(srv._futures)} [{card}]")
+        if m["completed"] != n_req or srv._futures or not srv._drained():
+            raise AssertionError(f"the async engine left work: {m}, "
+                                 f"{len(srv._futures)} futures")
     kv = srv.kv_stats()
+    tier = None
+    if srv.tiered:
+        srv._drain_migrations()         # nothing may stay unlanded
+        kv = srv.kv_stats()
+        tier = kv["tier"]
+        mig = srv.nic_report()["kv_migrate"]
+        n_calls = check_tables(srv, recs)
+        print(f"[serve] {name} tiers: {tier['demotions']} demotions "
+              f"({tier['forced_demotions']} forced), {tier['promotions']} "
+              f"promotions ({tier['prefetch_blocks']} prefetches, "
+              f"{tier['demand_stall_blocks']} demand fetches); "
+              f"{migrations.events} migration events, {migrations.demoted} "
+              f"pages demoted and {migrations.promoted} promoted, each "
+              f"byte for byte its source, {migrations.swaps} frames swapped "
+              f"within an event; policy {tier['policy']}; SimCXL migration "
+              f"cost {mig['n']} pages: PCIe {mig['pcie_us']:.1f} us vs CXL "
+              f"{mig['cxl_us']:.1f} us ({mig['speedup_x']}x); {n_calls} "
+              f"recorded paged-kernel calls read the {tier['near_frames']} + "
+              f"1 page near arena with ids in [-1, {tier['near_frames']}); "
+              f"after the drain near {tier['near_resident']}, far "
+              f"{tier['far_resident']} resident [{card}]")
+        if not (migrations.demoted and migrations.promoted) or \
+                migrations.demoted != tier["demotions"] or \
+                migrations.promoted != tier["promotions"]:
+            raise AssertionError(f"migrations: the pager planned {tier}, "
+                                 f"the engine ran {vars(migrations)}")
+        if tier["far_resident"] or kv["paged"]["pages_in_use"] or \
+                kv["blocks_allocated"] != kv["blocks_freed"]:
+            raise AssertionError(f"the tiered drain left pages: {kv}")
     if shared is not None:
         pf = kv["prefix"]
         print(f"[serve] {name}: prefix hits {pf['hits']} ({pf['hit_tokens']}"
@@ -1524,7 +1754,30 @@ def phase_serve(path, card, seed=0):
     if launches != expected or not all(launches[k] for k in required):
         raise AssertionError(f"launch counts do not match ticks: "
                              f"{launches} vs {expected}")
-    return name, launches, recs, srv, dict(outs=outs, first=first, kv=kv)
+    return name, launches, recs, srv, dict(outs=outs, first=first, kv=kv,
+                                           metrics=metrics, tier=tier)
+
+
+def first_token_drift(ref, run, n, label):
+    """Each request's first-token logits of ``run`` against ``ref``'s,
+    max |got - ref| / max |ref|: all ``n`` requests must lie within 2e-2.
+    Prints them and the share of greedy tokens the two runs agree on
+    (bf16 batch shapes differ between the runs, so exact agreement is not
+    required)."""
+    errs = {}
+    for rid, r in ref["first"].items():
+        r, g = r.float(), run["first"][rid].float()
+        errs[rid] = float((g - r).abs().max() / r.abs().max())
+    r_out, g_out = ref["outs"], run["outs"]
+    agree = sum(a == b for rid in r_out
+                for a, b in zip(r_out[rid], g_out[rid]))
+    whole = sum(r_out[rid] == g_out[rid] for rid in r_out)
+    print(f"[{label}] first-token logits, normwise: "
+          f"{', '.join(f'{r} {e:.3g}' for r, e in sorted(errs.items()))} "
+          f"(tol 2e-2); greedy tokens agreeing {agree}/{32 * len(r_out)}, "
+          f"{whole}/{len(r_out)} requests whole")
+    if len(errs) != n or max(errs.values()) > 2e-2:
+        raise AssertionError(f"{label}: first-token logits drift: {errs}")
 
 
 def compare_prefix(cold, hot):
@@ -1538,21 +1791,7 @@ def compare_prefix(cold, hot):
         raise AssertionError(f"the prefix cache did not share: cold "
                              f"{cold['kv']['blocks_allocated']} blocks, hot "
                              f"{hot['kv']}")
-    errs = {}
-    for rid, c in cold["first"].items():
-        c, h = c.float(), hot["first"][rid].float()
-        errs[rid] = float((h - c).abs().max() / c.abs().max())
-    c_out, h_out = cold["outs"], hot["outs"]
-    agree = sum(a == b for rid in c_out
-                for a, b in zip(c_out[rid], h_out[rid]))
-    whole = sum(c_out[rid] == h_out[rid] for rid in c_out)
-    print(f"[prefix] first-token logits hot vs cold, normwise: "
-          f"{', '.join(f'{r} {e:.3g}' for r, e in sorted(errs.items()))} "
-          f"(tol 2e-2); greedy tokens agreeing {agree}/{32 * len(c_out)}, "
-          f"{whole}/{len(c_out)} requests whole")
-    if len(errs) != len(PREFIX_TAILS) or max(errs.values()) > 2e-2:
-        raise AssertionError(f"hot first-token logits drift from cold: "
-                             f"{errs}")
+    first_token_drift(cold, hot, len(PREFIX_TAILS), "prefix hot vs cold")
 
 
 def _leaves(tree):
@@ -2344,6 +2583,14 @@ def phase_profile(srv, seed=1):
     srv.run_until_drained()
 
 
+
+def free_device():
+    """Drop a finished path's engine: its hooks are closures that hold the
+    engine, a reference cycle, so collect it before the allocator's cache
+    is emptied and the next path's peak memory is read."""
+    gc.collect()
+    torch.cuda.empty_cache()
+
 def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--quick", action="store_true",
@@ -2371,17 +2618,30 @@ def main(argv=None):
         return 0
     phase_tiny()
     by_path = {}
-    name, by_path[name], recs, srv, _ = phase_serve("mistral chunked", card)
+    name, by_path[name], recs, srv, chunked = phase_serve("mistral chunked",
+                                                          card)
     meas = phase_measure(recs, errs)
     if args.profile:
         phase_profile(srv)
     del srv, recs                      # free the arena and the params
+    free_device()
     name, by_path[name], recs, srv, _ = phase_serve("mistral one-shot", card)
     meas.update(phase_measure_oneshot(recs, errs, name))
     if args.profile:
         phase_profile(srv)
     del srv, recs                      # free mistral's 24.5 GB of params
-    torch.cuda.empty_cache()
+    free_device()
+    # the tiered near/far arena against its untiered twin, then the
+    # asyncio engine against the sync chunked run
+    runs = {}
+    for path in ("mistral tiered flat", "mistral tiered", "mistral async"):
+        name, by_path[name], recs, srv, runs[path] = phase_serve(path, card)
+        del srv, recs
+        free_device()
+    first_token_drift(runs["mistral tiered flat"], runs["mistral tiered"],
+                      16, "tiered vs flat")
+    first_token_drift(chunked, runs["mistral async"], 16, "async vs sync")
+    del runs, chunked
     name, by_path[name], recs, srv, _ = phase_serve("granite chunked", card)
     meas.update(phase_measure_moe(recs, errs))
     for name, rows in phase_measure_paged(recs, errs,
@@ -2390,6 +2650,7 @@ def main(argv=None):
     if args.profile:
         phase_profile(srv)
     del srv, recs
+    free_device()
     name, by_path[name], recs, srv, _ = phase_serve("granite one-shot", card)
     for kname, rows in phase_measure_oneshot(recs, errs, name).items():
         meas[kname]["shapes"].update(rows["shapes"])
@@ -2398,7 +2659,7 @@ def main(argv=None):
     if args.profile:
         phase_profile(srv)
     del srv, recs
-    torch.cuda.empty_cache()
+    free_device()
     name, by_path[name], recs, srv, _ = phase_serve("zamba2 dense", card)
     meas.update(phase_measure_ssd(recs, errs))
     for kname, rows in phase_measure_oneshot(recs, errs, name).items():
@@ -2406,7 +2667,7 @@ def main(argv=None):
     if args.profile:
         phase_profile(srv)
     del srv, recs
-    torch.cuda.empty_cache()
+    free_device()
     name, by_path[name], recs, srv, _ = phase_serve("danube chunked", card)
     for kname, rows in phase_measure_paged(recs, errs,
                                            "danube chunked").items():
@@ -2414,18 +2675,18 @@ def main(argv=None):
     if args.profile:
         phase_profile(srv)
     del srv, recs
-    torch.cuda.empty_cache()
+    free_device()
     name, by_path[name], recs, srv, _ = phase_serve("danube one-shot", card)
     if args.profile:
         phase_profile(srv)
     del srv, recs
-    torch.cuda.empty_cache()
+    free_device()
     runs = []
     for path in ("danube prefix cold", "danube prefix"):
         name, by_path[name], recs, srv, run = phase_serve(path, card)
         runs.append(run)
         del srv, recs
-        torch.cuda.empty_cache()
+        free_device()
     compare_prefix(*runs)
     record = {"kernels": [
         dict(name=name, route="cuda", **KERNELS[name],

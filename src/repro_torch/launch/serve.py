@@ -13,10 +13,14 @@ paged decode (the hybrid: one-shot prefill into the dense cache and
 batched dense decode), and reports tokens, scheduler stats and the
 SimCXL-projected CXL-NIC vs PCIe-NIC host cost.  ``--prefix-cache``
 (with ``--shared-prefix-len``) shares the pages of a common prompt prefix
-copy-on-write.  The options of the JAX launcher that belong to
-planes not ported yet are accepted by name and refused with the slice
-that brings them.  Exits non-zero if any submitted request is never
-drained or fails.
+copy-on-write.  ``--kv-overcommit`` / ``--kv-near-blocks`` (with
+``--kv-demote-after``) serve from a near tier smaller than the pool,
+spilling cold pages to the far tier.  ``--arrival poisson|bursty`` drives
+the asyncio engine through the trace-driven load generator instead of the
+all-at-once sync drain.  ``--disagg`` and ``--prefill-slots``, whose plane
+is not ported yet, are accepted by name and refused with the slice that
+brings them.  Exits non-zero if any submitted request is never drained or
+fails.
 """
 from __future__ import annotations
 
@@ -31,23 +35,19 @@ from repro_torch.configs import get_config, reduced
 from repro_torch.core import rpc as wire
 from repro_torch.device import resolve_device
 from repro_torch.models.model import build_model
-from repro_torch.runtime.server import BatchServer, encode_request
+from repro_torch.runtime.loadgen import (
+    ARRIVAL_PATTERNS, make_trace, run_closed_loop,
+)
+from repro_torch.runtime.server import (
+    AsyncBatchServer, BatchServer, encode_request,
+)
 
 RESP = {1: "int", 2: "bytes"}
-ARRIVAL_PATTERNS = ("all-at-once", "poisson", "bursty")
 
 
 def _refuse_unported(ap, args):
     later = "the port's slice for"
     checks = [
-        (args.arrival != "all-at-once", f"--arrival {args.arrival}",
-         "the asyncio engine (other paged engine planes)"),
-        (args.kv_overcommit != 1.0, "--kv-overcommit",
-         "KV tiering (other paged engine planes)"),
-        (args.kv_near_blocks is not None, "--kv-near-blocks",
-         "KV tiering (other paged engine planes)"),
-        (args.kv_demote_after is not None, "--kv-demote-after",
-         "KV tiering (other paged engine planes)"),
         (args.disagg, "--disagg",
          "disaggregated serving (other paged engine planes)"),
         (args.prefill_slots is not None, "--prefill-slots",
@@ -91,14 +91,27 @@ def main(argv=None):
                          "fraction of the page pool is free (0 = evict "
                          "only on allocation pressure); requires "
                          "--prefix-cache")
-    # options of the JAX launcher whose planes are later slices
     ap.add_argument("--arrival", default="all-at-once",
-                    choices=ARRIVAL_PATTERNS)
-    ap.add_argument("--rate", type=float, default=50.0)
+                    choices=ARRIVAL_PATTERNS,
+                    help="all-at-once = sync drain; poisson/bursty drive "
+                         "the async engine through the load generator")
+    ap.add_argument("--rate", type=float, default=50.0,
+                    help="poisson arrival rate (req/s)")
+    ap.add_argument("--kv-overcommit", type=float, default=1.0,
+                    help="admit KV against near+far capacity: size the "
+                         "near (HBM) tier at pool/FACTOR blocks and spill "
+                         "cold pages to the far (CXL) tier (1.0 = no "
+                         "tiering, the whole pool is near-resident)")
+    ap.add_argument("--kv-near-blocks", type=int, default=None,
+                    help="explicit near-tier budget in blocks (alternative "
+                         "to --kv-overcommit; must be >= one slot's worth "
+                         "and < the pool size to activate tiering)")
+    ap.add_argument("--kv-demote-after", type=int, default=None,
+                    help="override the sweep-derived demotion age: pages "
+                         "untouched for this many ticks become demotion "
+                         "candidates (requires active tiering)")
+    # options of the JAX launcher whose planes are later slices
     ap.add_argument("--no-paged-kv", action="store_true")
-    ap.add_argument("--kv-overcommit", type=float, default=1.0)
-    ap.add_argument("--kv-near-blocks", type=int, default=None)
-    ap.add_argument("--kv-demote-after", type=int, default=None)
     ap.add_argument("--disagg", action="store_true")
     ap.add_argument("--prefill-slots", type=int, default=None)
     ap.add_argument("--moe-routing", default="auto",
@@ -124,6 +137,25 @@ def main(argv=None):
     if not 0.0 <= args.prefix_watermark < 1.0:
         ap.error(f"--prefix-watermark must be in [0, 1), got "
                  f"{args.prefix_watermark}")
+    tiering = args.kv_overcommit > 1.0 or args.kv_near_blocks is not None
+    if args.kv_overcommit < 1.0:
+        ap.error(f"--kv-overcommit must be >= 1.0 (1.0 = no tiering), "
+                 f"got {args.kv_overcommit}")
+    if args.kv_near_blocks is not None and args.kv_overcommit > 1.0:
+        ap.error("--kv-near-blocks and --kv-overcommit both size the "
+                 "near tier; pass one")
+    if args.kv_near_blocks is not None and args.kv_near_blocks < 1:
+        ap.error(f"--kv-near-blocks must be >= 1, got "
+                 f"{args.kv_near_blocks}")
+    if args.kv_demote_after is not None and args.kv_demote_after < 1:
+        ap.error(f"--kv-demote-after must be >= 1, got "
+                 f"{args.kv_demote_after}")
+    if args.kv_demote_after is not None and not tiering:
+        ap.error("--kv-demote-after requires active tiering "
+                 "(--kv-overcommit > 1 or --kv-near-blocks)")
+    if tiering and args.no_paged_kv:
+        ap.error("KV tiering requires the paged KV plane "
+                 "(drop --no-paged-kv)")
 
     cfg = reduced(get_config(args.arch))
     if args.no_paged_kv and cfg.family != "hybrid":
@@ -153,8 +185,9 @@ def main(argv=None):
         sys.exit(2)
     max_len = args.shared_prefix_len + args.prompt_len + args.max_new + 2
     gen = torch.Generator(device=device).manual_seed(args.seed)
+    cls = BatchServer if args.arrival == "all-at-once" else AsyncBatchServer
     try:
-        server = BatchServer(
+        server = cls(
             model, batch_slots=args.slots, max_len=max_len,
             params=model.init(gen, device), device=device,
             paged_kv=False if args.no_paged_kv else "auto",
@@ -162,7 +195,10 @@ def main(argv=None):
                            else args.prefill_chunk),
             prefill_buckets=args.prefill_buckets,
             prefix_cache=args.prefix_cache,
-            prefix_watermark=args.prefix_watermark)
+            prefix_watermark=args.prefix_watermark,
+            kv_overcommit=args.kv_overcommit,
+            kv_near_blocks=args.kv_near_blocks,
+            kv_demote_after=args.kv_demote_after)
     except ValueError as e:
         ap.error(str(e))
 
@@ -175,9 +211,17 @@ def main(argv=None):
         args.max_new) for rid in range(args.requests)]
 
     t0 = time.time()
-    for w in wires:
-        server.submit_wire(w)
-    responses = server.run_until_drained()
+    if args.arrival == "all-at-once":
+        for w in wires:
+            server.submit_wire(w)
+        responses = server.run_until_drained()
+        metrics = None
+    else:
+        # submit the wire bytes themselves so the NIC projection sees the
+        # ingress deserialization traffic too
+        trace = make_trace(args.arrival, args.requests, rate_rps=args.rate,
+                           burst=max(1, args.slots), seed=args.seed)
+        responses, metrics = run_closed_loop(server, wires, trace)
     dt = time.time() - t0
 
     for buf in responses:
@@ -186,12 +230,24 @@ def main(argv=None):
         print(f"req {msg[1]}: {toks.tolist()}")
     print(f"[serve] {len(responses)}/{args.requests} completed in {dt:.1f}s "
           f"on {device}; stats={server.stats}")
+    if metrics is not None:
+        print(f"[serve] load: {metrics.to_dict()}")
     nic = server.nic_report()["total"]
     kv = server.kv_stats()
     print(f"[serve] SimCXL NIC projection: PCIe {nic['pcie_us']:.1f}us vs "
           f"CXL {nic['cxl_us']:.1f}us ({nic['speedup_x']}x); "
           f"kv: {'paged' if kv['paged_kv'] else 'dense'} cache, "
           f"{kv['kv_tier']} tier, {kv['blocks_allocated']} blocks")
+    if server.tiered:
+        t = kv["tier"]
+        pol = t["policy"]
+        print(f"[serve] kv tiers: {t['near_resident']}/{t['near_frames']} "
+              f"near, {t['far_resident']}/{t['far_frames']} far; "
+              f"{t['demotions']} demoted ({t['forced_demotions']} forced), "
+              f"{t['promotions']} promoted ({t['prefetch_blocks']} "
+              f"prefetch, {t['demand_stall_blocks']} demand stalls); "
+              f"policy: {pol['flow']} demote_after={pol['demote_after']} "
+              f"batch={pol['migrate_batch']}")
     if args.prefix_cache:
         pf = kv["prefix"]
         print(f"[serve] prefix cache: {pf['hits']} hits "

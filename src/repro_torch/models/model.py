@@ -44,6 +44,9 @@ class Model:
     #   -> (last-valid-position logits, pages)
     paged_prefill_write: Optional[Callable] = None
     # (pages, k_rows, v_rows, block_ids, prompt_len, skip_tokens=0) -> pages
+    kv_migrate: Optional[Callable] = None
+    # (near, far, dem_src, dem_dst, pro_src, pro_dst) -> (near, far), the
+    #   tiered engine's near<->far page copies
 
     def init(self, generator: Optional[torch.Generator] = None,
              device=None):
@@ -96,4 +99,5 @@ def build_model(cfg: ModelConfig) -> Model:
         paged_prefill_write=lambda pages, k, v, ids, n, skip=0:
             transformer.lm_paged_prefill_write(cfg, pages, k, v, ids, n,
                                                skip),
+        kv_migrate=transformer.lm_kv_migrate,
     )

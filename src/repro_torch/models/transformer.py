@@ -174,6 +174,32 @@ def lm_init_paged_cache(cfg, batch: int, max_len: int, block_tokens: int = 16,
             "vp": torch.zeros(shape, dtype=dtype, device=device)}
 
 
+def lm_kv_migrate(near, far, dem_src, dem_dst, pro_src, pro_dst):
+    """One fused near<->far migration event over two KV arenas, in place.
+
+    near/far: {"kp", "vp"} arenas (L, P_near/P_far, bt, K, hd);
+    dem_src/dem_dst: (D,) int — demotions copy near frame dem_src[i] into
+    far frame dem_dst[i]; pro_src/pro_dst: (U,) int — promotions copy far
+    frame pro_src[i] into near frame pro_dst[i].  Ragged event sizes are
+    padded with trash->trash self-copies (duplicate indices: which write
+    lands is undefined, and the trash frames are never read meaningfully).
+
+    Gather-first: all four source blocks are copied out of the arenas
+    before either arena is written, so a far frame freed by a promotion
+    may take a demotion, and a near frame freed by a demotion may take a
+    promotion, in the same event (the swap case when both tiers are
+    full).  Returns (near, far).
+    """
+    dem_src, dem_dst = dem_src.long(), dem_dst.long()
+    pro_src, pro_dst = pro_src.long(), pro_dst.long()
+    moved = {name: (near[name][:, dem_src], far[name][:, pro_src])
+             for name in ("kp", "vp")}
+    for name, (dem_rows, pro_rows) in moved.items():
+        far[name].index_copy_(1, dem_dst, dem_rows)
+        near[name].index_copy_(1, pro_dst, pro_rows)
+    return near, far
+
+
 # --------------------------------------------------------------------------
 # One-shot prefill: exact-length prompt forward, then one page write
 # --------------------------------------------------------------------------

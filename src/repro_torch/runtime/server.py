@@ -25,6 +25,15 @@ and on the dense-cache plane (the hybrid family, which has no paged path):
     prompt prefix copy-on-write (``KVBlockPager.admit_cached`` /
     ``publish_prefix``): a chunked admission resumes at the hit, a
     one-shot one writes only its tail blocks;
+  * KV tiering (``kv_overcommit > 1`` or ``kv_near_blocks``): the arena
+    the kernels read is a near (HBM) tier smaller than the logical pool,
+    and a second arena on the same device holds the far (CXL) tier's cold
+    pages.  Each tick the engine engages the slots whose working sets fit
+    the near tier (``_plan_engaged``), lands the pager's migration plan
+    with ``model.kv_migrate`` before any dispatch touches the arena
+    (``_drain_migrations``), and ships block tables translated to near
+    frames (``KVBlockPager.to_near``); the NIC cost model bills each
+    migration (``niccost.on_kv_migrate``);
   * dense-cache plane: requests are admitted in equal-prompt-length waves
     (the shared write index ``cur``), each group of up to
     ``prefill_batch`` prefilled in one ``model.prefill`` to ``max_len``
@@ -34,15 +43,23 @@ On a CUDA device the steps run their attention, norms, SSD scans (and,
 for the moe family, the expert GEMMs and the gated combine) in the
 hand-written kernels of ``kernels.ops``; on the CPU in the plain versions.
 
+``AsyncBatchServer`` is the asyncio engine on the same tick loop:
+``submit_async`` resolves a future per request while ``run_engine``
+admits and decodes continuously; ``runtime.loadgen`` drives it with
+arrival traces.
+
 Every option outside these planes raises, naming the later slice of the
 port that brings it: the dense cache of the dense and moe families
-(``paged_kv=False``, with its sliding-window ring), KV tiering,
-disaggregated and asyncio engines.
+(``paged_kv=False``, with its sliding-window ring) and the disaggregated
+engines.
 """
 from __future__ import annotations
 
+import asyncio
+import dataclasses
+import math
 import time
-from typing import Callable, Dict, List, Optional
+from typing import Callable, Dict, List, Optional, Set
 
 import numpy as np
 import torch
@@ -166,13 +183,6 @@ class BatchServer:
         if paged_kv and not has_paged:
             raise ValueError(f"paged_kv requested but model {cfg.family!r} "
                              f"has no paged decode path")
-        if not paged_kv and has_paged:
-            what = "the sliding-window ring of the dense (slots, max_len) " \
-                "KV cache plane" if cfg.sliding_window else \
-                "the dense (slots, max_len) KV cache plane"
-            raise _later(f"{what} (paged_kv=False) of the dense and moe "
-                         f"families", "the dense-cache plane of the dense "
-                         "family")
         self.paged = bool(paged_kv)
         # prefill is chunk/pad-invariant iff routing decisions are a pure
         # per-token function: every family except capacity-factor MoE,
@@ -198,10 +208,47 @@ class BatchServer:
                 "capacity-factor MoE drops depend on co-resident "
                 "tokens; serve with cfg.moe_routing='dropless' or "
                 "use prefill_chunk=0")
-        if kv_overcommit != 1.0 or kv_near_blocks is not None \
-                or kv_demote_after is not None:
-            raise _later("KV tiering (kv_overcommit / kv_near_blocks / "
-                         "kv_demote_after)", "the other paged engine planes")
+        # -------------------------------------------------- KV tiering
+        # kv_overcommit > 1 (or an explicit kv_near_blocks) splits the
+        # pooled arena into a near (HBM) tier the kernels read and a far
+        # (CXL) tier holding cold pages; logical capacity is unchanged —
+        # every page keeps a home — but only near_frames of them are
+        # kernel-addressable at once (KVBlockPager does the tiering)
+        self.kv_overcommit = float(kv_overcommit)
+        if self.kv_overcommit < 1.0:
+            raise ValueError(f"kv_overcommit must be >= 1.0 (1.0 = no "
+                             f"overcommit), got {kv_overcommit}")
+        if kv_near_blocks is not None and self.kv_overcommit != 1.0:
+            raise ValueError("kv_near_blocks and kv_overcommit both size "
+                             "the near tier; pass one")
+        n_pages = batch_slots * blocks_for(max_len, block_tokens)
+        near_frames: Optional[int] = None
+        if kv_near_blocks is not None:
+            near_frames = int(kv_near_blocks)
+        elif self.kv_overcommit > 1.0:
+            near_frames = max(blocks_for(max_len, block_tokens),
+                              int(math.ceil(n_pages / self.kv_overcommit)))
+        if near_frames is not None and not self.paged:
+            raise ValueError("KV tiering (kv_overcommit/kv_near_blocks) "
+                             "requires the paged KV plane (paged_kv)")
+        tiered = near_frames is not None and near_frames < n_pages
+        if kv_demote_after is not None:
+            if int(kv_demote_after) < 1:
+                raise ValueError(f"kv_demote_after must be >= 1, got "
+                                 f"{kv_demote_after}")
+            if not tiered:
+                raise ValueError("kv_demote_after requires active KV "
+                                 "tiering (kv_overcommit > 1 or "
+                                 "kv_near_blocks < pool size)")
+        # the knobs are checked first, as in JAX: a conflict is a
+        # ValueError whichever plane it names
+        if not paged_kv and has_paged:
+            what = "the sliding-window ring of the dense (slots, max_len) " \
+                "KV cache plane" if cfg.sliding_window else \
+                "the dense (slots, max_len) KV cache plane"
+            raise _later(f"{what} (paged_kv=False) of the dense and moe "
+                         f"families", "the dense-cache plane of the dense "
+                         "family")
         # prefix caching shares KV pool pages across requests whose
         # prompts extend a block-aligned cached prefix; off by default —
         # retained prefixes keep pool pages referenced past request drain
@@ -235,10 +282,18 @@ class BatchServer:
         self.chunk_buckets = _prefill_buckets(prefill_chunk, prefill_buckets) \
             if prefill_chunk else ()
         self.prefill_batch = max(1, prefill_batch)
+        self.far_pages = None
         if self.paged:
-            self.pages = model.init_paged_cache(batch_slots, max_len,
-                                                block_tokens,
-                                                device=self.device)
+            # tiered: the near arena (what the kernels address, plus its
+            # trash frame) and the far arena (the remaining frames), both
+            # on the engine's device, as in JAX
+            self.pages = model.init_paged_cache(
+                batch_slots, max_len, block_tokens, device=self.device,
+                frames=near_frames if tiered else None)
+            if tiered:
+                self.far_pages = model.init_paged_cache(
+                    batch_slots, max_len, block_tokens, device=self.device,
+                    frames=n_pages - near_frames)
             self.cache = None
             kp = self.pages["kp"]
             # k+v bytes per token, derived from the arena itself
@@ -267,12 +322,23 @@ class BatchServer:
                                   params_bytes=_tree_nbytes(self.params),
                                   hbm_budget=hbm, track_table=self.paged,
                                   footprint=footprint,
-                                  prefix_cache=self.prefix_cache)
-        # the model sized the arena, the pager sized the page table: every
-        # page id must address a real (non-trash) arena page
+                                  prefix_cache=self.prefix_cache,
+                                  near_frames=near_frames)
+        self.tiered = self.pager.tiered
+        if kv_demote_after is not None:
+            self.pager.policy = dataclasses.replace(
+                self.pager.policy, demote_after=int(kv_demote_after))
+        # the model sized the arenas, the pager sized the page table: every
+        # near frame index must address a real (non-trash) arena page, and
+        # near + far frames must cover the logical pool
         if self.paged:
             assert self.pages["kp"].shape[1] == self.pager.near_frames + 1, \
                 (tuple(self.pages["kp"].shape), self.pager.near_frames)
+            if self.tiered:
+                assert self.far_pages["kp"].shape[1] == \
+                    self.pager.far_frames + 1, \
+                    (tuple(self.far_pages["kp"].shape),
+                     self.pager.far_frames)
         if nic_cost is True:
             self.niccost = NicCostModel()
         elif nic_cost in (None, False):
@@ -287,6 +353,20 @@ class BatchServer:
         self._page_write = model.paged_prefill_write
         self._chunk_prefill = model.paged_prefill_chunk
         self._paged_decode = model.paged_decode_step
+        # fused demote/promote copy between the arenas, in place
+        # (gather-first inside, so one event can swap through a full tier)
+        self._kv_migrate = model.kv_migrate
+        # engagement bookkeeping (tiered plane): which slots this tick's
+        # dispatches may touch, and a least-recently-engaged clock so
+        # deferral rotates fairly.  None = everything engaged (untiered).
+        self._engaged: Optional[Set[int]] = None
+        self._last_engaged: Dict[int, int] = {}
+        # quiet-tick fast path: mid-wave steady ticks (no admission,
+        # release, or migration since the last full plan, and no slot
+        # crossing a block boundary) cannot allocate frames or touch a
+        # far page, so the whole engage/plan/pin cycle is skipped
+        self._tier_dirty = True
+        self._engaged_cache: Optional[Set[int]] = None
         # block after each dispatch so the wall-clock stats attribute the
         # device time honestly (benchmarks); off by default
         self.sync_timers = sync_timers
@@ -320,6 +400,8 @@ class BatchServer:
                "page_write": self._page_write}
         if self.prefill_chunk:
             fns["chunk_prefill"] = self._chunk_prefill
+        if self.tiered:
+            fns["kv_migrate"] = self._kv_migrate
         return fns
 
     def _to_device(self, arr: np.ndarray) -> torch.Tensor:
@@ -365,7 +447,9 @@ class BatchServer:
         req.to(RequestState.FAILED, now)
         self.stats["failed"] += 1
         self.completed_reqs.append(req)
-        return encode_response(req.req_id, [])
+        buf = encode_response(req.req_id, [])
+        self._notify(req, buf)
+        return buf
 
     def _admit_group(self, reqs: List[Request], now: float):
         """Prefill a group of equal-prompt-length requests in one
@@ -407,9 +491,14 @@ class BatchServer:
             else:
                 ids = [p for slot in slot_arr
                        for p in self.pager.admit(slot, S)]
+            # fresh allocations may have force-demoted cold pages: land
+            # those copies before the write; the new pages are near by
+            # construction, so the id -> near-frame translation is total
+            self._drain_migrations()
+            ids_near = self.pager.to_near(np.asarray(ids, np.int32))
             self.pages = self._page_write(
                 self.pages, cache1["k"], cache1["v"],
-                self._to_device(np.asarray(ids, np.int32)), S, skip)
+                self._to_device(ids_near), S, skip)
             if self.prefix_cache and shareable:
                 for slot, req in zip(slot_arr, reqs):
                     self.pager.publish_prefix(slot, req.prompt)
@@ -428,6 +517,7 @@ class BatchServer:
         self.stats["splice_wall_s"] += time.perf_counter() - tw
         self.stats["prefills"] += len(reqs)
         self.stats["admitted"] += len(reqs)
+        self._tier_dirty = True                # fresh slots + page claims
 
     def _admit(self, now: float) -> List[bytes]:
         """Admit from the queue while slots are free.  Chunked: each
@@ -436,6 +526,13 @@ class BatchServer:
         prefill as one batched call (up to ``prefill_batch``)."""
         failures: List[bytes] = []
         group: List[Request] = []
+        # overcommit admission gate: a request only enters a slot when its
+        # prompt blocks fit the obtainable near frames (free + demotable);
+        # otherwise it stays queued.  Chunked admissions allocate one
+        # block up front and stream the rest under the engagement plan,
+        # so they gate on a single block.
+        headroom = self.pager.admit_headroom() if self.tiered else None
+        planned = 0
 
         def flush():
             if group:
@@ -443,6 +540,15 @@ class BatchServer:
                 group.clear()
 
         while self.table.free > len(group):
+            if self.tiered:
+                head = next(iter(self.queue), None)
+                if head is not None:
+                    need = 1 if self.prefill_chunk else max(
+                        1, blocks_for(min(len(head.prompt), self.max_len),
+                                      self.pager.block_tokens))
+                    if planned + need > headroom:
+                        break
+                    planned += need
             empty = not self.active and not group
             if self.paged or empty:
                 wi = 0                            # unused by the policy
@@ -507,6 +613,7 @@ class BatchServer:
         self.niccost.on_egress({1: req.req_id,
                                 2: np.asarray(req.generated,
                                               np.int32).tobytes()})
+        self._notify(req, buf)
         return buf
 
     def _exhausted(self, req: Request) -> bool:
@@ -515,10 +622,13 @@ class BatchServer:
         return len(req.generated) >= req.max_new or req.pos >= self.max_len
 
     def _harvest(self, now: float) -> List[bytes]:
-        return [self._finish(req, now)
-                for _, req in sorted(self.active.items())
-                if req.state is RequestState.DECODE
-                and self._exhausted(req)]
+        out = [self._finish(req, now)
+               for _, req in sorted(self.active.items())
+               if req.state is RequestState.DECODE
+               and self._exhausted(req)]
+        if out:
+            self._tier_dirty = True            # slots released pages
+        return out
 
     # ----------------------------------------------------- chunked prefill
     def _prefill_step(self):
@@ -527,6 +637,10 @@ class BatchServer:
         dimension with the full-width block table."""
         pre = {slot: req for slot, req in self.active.items()
                if req.state is RequestState.PREFILLING}
+        if self._engaged is not None:
+            # tiered plane: only the engaged slots' pages are near; the
+            # deferred ones chunk on a later tick (engage() rotates)
+            pre = {s: r for s, r in pre.items() if s in self._engaged}
         if not pre:
             return
         step_v: Dict[int, int] = {}
@@ -545,7 +659,9 @@ class BatchServer:
             ctx[slot] = req.prefilled
             valid[slot] = v
             self.pager.advance(slot, req.prefilled + v)
-        btab = self._masked_block_table(pre)
+        # chunk growth may have force-demoted; land copies pre-dispatch
+        self._drain_migrations()
+        btab = self.pager.to_near(self._masked_block_table(pre))
         completes = any(req.prefilled + step_v[slot] >= len(req.prompt)
                         for slot, req in pre.items())
         t0 = time.perf_counter()
@@ -599,12 +715,149 @@ class BatchServer:
         need = max(1, blocks_for(max_resident, self.pager.block_tokens))
         return min(self.pager.max_blocks, -(-need // 8) * 8)
 
+    # ------------------------------------------------------- KV tiering
+    @staticmethod
+    def _pad_pairs(pairs, trash_src: int, trash_dst: int, m: int):
+        """(src, dst) frame pairs -> int32 index arrays padded to width
+        ``m`` with trash-to-trash self-copies (the trash frames are
+        never read meaningfully, so extra copies are inert)."""
+        src = np.full((m,), trash_src, np.int32)
+        dst = np.full((m,), trash_dst, np.int32)
+        for i, (s, d) in enumerate(pairs):
+            src[i] = s
+            dst[i] = d
+        return src, dst
+
+    def _drain_migrations(self):
+        """Execute the pager's pending migration plan against the arenas.
+        Events run in plan order (later events may reuse frames earlier
+        ones freed) and all land before the next arena-touching dispatch:
+        the copies are queued on the device's stream ahead of it."""
+        if not self.tiered:
+            return
+        for dem, pro in self.pager.take_migrations():
+            # both sides padded to one power-of-two width, as in JAX (its
+            # compiled shape family; here only the trash copies follow)
+            m = 1 << (max(1, len(dem), len(pro)) - 1).bit_length()
+            ds, dd = self._pad_pairs(dem, self.pager.near_frames,
+                                     self.pager.far_frames, m)
+            ps, pd = self._pad_pairs(pro, self.pager.far_frames,
+                                     self.pager.near_frames, m)
+            self.pages, self.far_pages = self._kv_migrate(
+                self.pages, self.far_pages, self._to_device(ds),
+                self._to_device(dd), self._to_device(ps),
+                self._to_device(pd))
+            if dem or pro:
+                self.niccost.on_kv_migrate(len(dem) + len(pro),
+                                           self.pager.block_bytes)
+                self._tier_dirty = True        # residency moved
+
+    def warmup_migrations(self):
+        """The JAX engine compiles every migrate shape here, off the
+        serving path; eager PyTorch has nothing to compile, so this runs
+        the same inert trash-to-trash self-copies at each power-of-two
+        width (callers and the engine's call sequence match JAX's)."""
+        if not self.tiered:
+            return
+        nt, ft = self.pager.near_frames, self.pager.far_frames
+        m, bound = 1, max(nt, ft)
+        while True:
+            near_trash = self._to_device(np.full((m,), nt, np.int32))
+            far_trash = self._to_device(np.full((m,), ft, np.int32))
+            self.pages, self.far_pages = self._kv_migrate(
+                self.pages, self.far_pages, near_trash, far_trash,
+                far_trash, near_trash)
+            if m >= bound:
+                break
+            m <<= 1
+        self._sync()
+
+    def _want_tokens(self, req: Request) -> int:
+        """Tokens the slot's next dispatch makes resident (the engagement
+        demand unit)."""
+        if req.state is RequestState.PREFILLING:
+            # +1: a chunk that completes the prompt decodes this same
+            # tick at position len(prompt) + 1
+            t = min(req.prefilled + self.prefill_chunk,
+                    len(req.prompt)) + 1
+        else:
+            t = req.pos
+        return min(t, self.max_len)
+
+    def _quiet_tick(self) -> bool:
+        """True when this tick provably needs no engagement plan: nothing
+        was admitted, released, or migrated since the last full plan, the
+        cached engaged set covers every active slot, and no slot's next
+        dispatch crosses a block boundary.  Under those conditions no
+        frame can be claimed and no far page read, so skipping the plan
+        (including its pins — pins only guard claims) is sound.  Sliding-
+        window engines are excluded: release-behind changes block lists
+        mid-tick."""
+        if self._tier_dirty or self.window or self._engaged_cache is None:
+            return False
+        bt = self.pager.block_tokens
+        for slot, req in self.active.items():
+            if slot not in self._engaged_cache:
+                return False                   # a deferred slot wants in
+            if req.state not in (RequestState.PREFILLING,
+                                 RequestState.DECODE):
+                return False
+            if blocks_for(self._want_tokens(req), bt) \
+                    > self.pager.resident_blocks(slot):
+                return False
+        return True
+
+    def _plan_engaged(self, *, prefetch: bool = False) -> Optional[Set[int]]:
+        """Pick the slots this tick's dispatches may touch (near-capacity
+        packing over their working sets, least-recently-engaged first so
+        deferral rotates) and make their pages near-resident.  With
+        ``prefetch=True`` (end of tick) the same plan runs for the *next*
+        tick's set, so its promotions count as prefetches, not demand
+        stalls."""
+        if not self.tiered:
+            return None
+        if self._quiet_tick():
+            return self._engaged_cache
+        wants = []
+        order = sorted(self.active.items(),
+                       key=lambda kv: (self._last_engaged.get(kv[0], -1),
+                                       kv[0]))
+        for slot, req in order:
+            if req.state not in (RequestState.PREFILLING,
+                                 RequestState.DECODE):
+                continue
+            wants.append((slot, self._want_tokens(req)))
+        if not wants:
+            # still reset pins / run the proactive demoter on idle ticks
+            self.pager.plan_near(set(), prefetch=prefetch)
+            self._drain_migrations()
+            self._engaged_cache = set()
+            self._tier_dirty = False
+            return set()
+        engaged = self.pager.engage(wants)
+        self.pager.plan_near_slots(engaged, prefetch=prefetch)
+        self._drain_migrations()
+        if not prefetch:
+            for s in engaged:
+                self._last_engaged[s] = self.stats["ticks"]
+        # the plan + drained copies leave the engaged set near-resident
+        # and consistent: until something changes (dirty), subsequent
+        # ticks may reuse it without replanning
+        self._engaged_cache = set(engaged)
+        self._tier_dirty = False
+        return self._engaged_cache
+
     def step(self) -> List[bytes]:
         """One scheduler tick: admit from queue (one-shot: prefilling each
-        admission group), advance chunked prefills by one chunk, one
-        batched decode step over the DECODE slots."""
+        admission group), plan the tiered engine's engaged set, advance
+        chunked prefills by one chunk, one batched decode step over the
+        DECODE slots."""
         now = time.perf_counter()
         self.stats["ticks"] += 1
+        if self.tiered:
+            # pins protect pages only within a tick; admission may demote
+            # last tick's working set (the plan below re-promotes)
+            self.pager.begin_tick(self.stats["ticks"])
         if self.prefix_cache and self.prefix_watermark:
             # proactive LRU eviction keeps free-page headroom for
             # incoming admissions
@@ -614,6 +867,9 @@ class BatchServer:
             self._unbilled_tickets = 0
         finished = self._admit(now)
         self.stats["admit_wall_s"] += time.perf_counter() - now
+        # tiered plane: pick + promote this tick's engaged working set
+        # before any dispatch reads the arena (demand fetches land here)
+        self._engaged = self._plan_engaged()
         if self.prefill_chunk:
             self._prefill_step()
         # prefill emits the first token: single-token requests are already
@@ -626,7 +882,13 @@ class BatchServer:
         self._busy_slot_ticks += len(self.active)
         decoding = {slot: req for slot, req in self.active.items()
                     if req.state is RequestState.DECODE}
+        if self._engaged is not None:
+            decoding = {s: r for s, r in decoding.items()
+                        if s in self._engaged}
         if not decoding:
+            if self.tiered:
+                # prefetch the next tick's working set into the near tier
+                self._plan_engaged(prefetch=True)
             return []
         last = np.zeros((self.slots, 1), np.int32)
         for slot, req in decoding.items():
@@ -648,9 +910,11 @@ class BatchServer:
                     self.pager.release_behind(
                         slot, max(0, req.pos - self.window))
             nb = self._decode_bucket(int(lens.max()) + 1)
+            # token-growth allocations may have force-demoted cold pages
+            self._drain_migrations()
             # PREFILLING slots hold live table rows but must be neither
             # attended nor written by the decode step
-            btab = self._masked_block_table(decoding, nb)
+            btab = self.pager.to_near(self._masked_block_table(decoding, nb))
             logits, self.pages = self._paged_decode(
                 self.params, self.pages, self._to_device(last),
                 self._to_device(btab), self._to_device(lens))
@@ -668,7 +932,12 @@ class BatchServer:
             req.generated.append(int(nxt[slot]))
             if not self.paged:
                 self.pager.advance(slot, req.pos)
-        return self._harvest(now)
+        finished = self._harvest(now)
+        if self.tiered:
+            # plan + fetch the next tick's engaged set now: these copies
+            # land at the tick boundary and count as prefetches
+            self._plan_engaged(prefetch=True)
+        return finished
 
     def run_until_drained(self,
                           max_ticks: Optional[int] = None) -> List[bytes]:
@@ -683,11 +952,116 @@ class BatchServer:
         return out
 
     # --------------------------------------------------------- reporting
+    def _notify(self, req: Request, buf: bytes):
+        """Completion hook (AsyncBatchServer resolves futures here)."""
+
     def kv_stats(self) -> dict:
         out = self.pager.stats()
         out["paged_kv"] = self.paged
-        out["tiered"] = False
+        out["tiered"] = self.tiered
         return out
 
     def nic_report(self) -> dict:
         return self.niccost.report()
+
+
+class AsyncBatchServer(BatchServer):
+    """Asyncio continuous-batching engine on the same scheduler core.
+
+    ``submit_async`` enqueues a request and resolves to its wire response;
+    ``run_engine`` is the engine coroutine — it admits + decodes while work
+    is pending and parks on an event when idle.  ``close()`` lets the
+    engine exit once everything in flight has drained.  Each ``step``
+    already ends in the argmax copy to the host, so the coroutine adds no
+    device sync of its own.
+    """
+
+    def __init__(self, *args, idle_wait_s: float = 0.01, **kwargs):
+        super().__init__(*args, **kwargs)
+        self.idle_wait_s = idle_wait_s
+        self._futures: Dict[int, asyncio.Future] = {}
+        self._wakeup: Optional[asyncio.Event] = None
+        self._engine_exc: Optional[BaseException] = None
+
+    def _event(self) -> asyncio.Event:
+        if self._wakeup is None:
+            self._wakeup = asyncio.Event()
+        return self._wakeup
+
+    async def submit_async(self, req) -> bytes:
+        """Submit a Request (or wire-encoded bytes); awaits the response."""
+        if self._engine_exc is not None:
+            raise RuntimeError("engine crashed") from self._engine_exc
+        # decode/validate before submitting: if anything raises (closed
+        # server, bad wire bytes, duplicate id) no orphaned future is left
+        # behind to wedge _drained(), and no future gets overwritten
+        if isinstance(req, (bytes, bytearray)):
+            buf = bytes(req)
+            msg = wire.decode(buf, REQ_SCHEMA)
+            rid = msg[1]
+            self._check_unique(rid)
+            self.niccost.on_ingress(msg)
+            self.submit(self._request_from_msg(msg, len(buf)))
+        else:
+            rid = req.req_id
+            self._check_unique(rid)
+            self.submit(req)
+        fut = asyncio.get_running_loop().create_future()
+        self._futures[rid] = fut
+        self._event().set()
+        return await fut
+
+    def _check_unique(self, rid: int):
+        if rid in self._futures:
+            raise ValueError(f"request id {rid} already in flight")
+
+    def close(self):
+        super().close()
+        if self._wakeup is not None:
+            self._wakeup.set()
+
+    def reopen(self):
+        super().reopen()
+        self._wakeup = None     # the next drive loop binds a fresh event
+
+    def _notify(self, req: Request, buf: bytes):
+        fut = self._futures.pop(req.req_id, None)
+        if fut is not None and not fut.done():
+            fut.set_result(buf)
+
+    def _drained(self) -> bool:
+        return not len(self.queue) and not self.active and not self._futures
+
+    async def run_engine(self):
+        """Engine loop: tick while work is pending, park when idle, exit
+        when closed and fully drained.  A crash fails every outstanding
+        future so no awaiting submitter hangs."""
+        ev = self._event()
+        try:
+            while not (self._closed and self._drained()):
+                if self.active or len(self.queue):
+                    self.step()
+                    await asyncio.sleep(0)        # cooperative yield
+                    continue
+                ev.clear()
+                if self._closed and self._drained():
+                    break
+                try:
+                    await asyncio.wait_for(ev.wait(),
+                                           timeout=self.idle_wait_s)
+                except asyncio.TimeoutError:
+                    pass
+        except BaseException as e:
+            self._engine_exc = e
+            for fut in self._futures.values():
+                if not fut.done():
+                    fut.set_exception(
+                        RuntimeError(f"engine crashed: {e!r}"))
+            self._futures.clear()
+            raise
+        return self.stats
+
+    async def drain(self, poll_s: float = 0.001):
+        """Wait (without closing) until nothing is queued or in flight."""
+        while not self._drained():
+            await asyncio.sleep(poll_s)

@@ -94,8 +94,6 @@ def test_engine_wire_outputs_match_jax(setup, plane):
 
 UNPORTED = {
     "dense-cache": (dict(paged_kv=False), "dense-cache plane"),
-    "tiering": (dict(kv_overcommit=2.0), "tiering"),
-    "tiering-near": (dict(kv_near_blocks=4), "tiering"),
 }
 
 
@@ -162,9 +160,7 @@ def test_launcher_drains_on_cpu(capsys):
 
 
 @pytest.mark.parametrize("argv", [
-    ["--no-paged-kv"], ["--kv-overcommit", "2"],
-    ["--kv-near-blocks", "4"], ["--kv-demote-after", "3"], ["--disagg"],
-    ["--prefill-slots", "2"], ["--arrival", "poisson"],
+    ["--no-paged-kv"], ["--disagg"], ["--prefill-slots", "2"],
 ], ids=lambda a: a[0].lstrip("-"))
 def test_launcher_refuses_unported_options_by_name(argv, capsys):
     with pytest.raises(SystemExit) as ex:
