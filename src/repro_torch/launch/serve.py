@@ -17,10 +17,11 @@ copy-on-write.  ``--kv-overcommit`` / ``--kv-near-blocks`` (with
 ``--kv-demote-after``) serve from a near tier smaller than the pool,
 spilling cold pages to the far tier.  ``--arrival poisson|bursty`` drives
 the asyncio engine through the trace-driven load generator instead of the
-all-at-once sync drain.  ``--disagg`` and ``--prefill-slots``, whose plane
-is not ported yet, are accepted by name and refused with the slice that
-brings them.  Exits non-zero if any submitted request is never drained or
-fails.
+all-at-once sync drain.  ``--disagg`` serves through the disaggregated
+engine (a prefill worker of ``--prefill-slots`` slots and a decode worker
+of ``--slots`` over the one page arena), and ``--no-paged-kv`` through the
+dense-cache plane (bucketed prefill; a ring under a window).  Exits
+non-zero if any submitted request is never drained or fails.
 """
 from __future__ import annotations
 
@@ -39,24 +40,11 @@ from repro_torch.runtime.loadgen import (
     ARRIVAL_PATTERNS, make_trace, run_closed_loop,
 )
 from repro_torch.runtime.server import (
-    AsyncBatchServer, BatchServer, encode_request,
+    AsyncBatchServer, AsyncDisaggEngine, BatchServer, DisaggEngine,
+    encode_request,
 )
 
 RESP = {1: "int", 2: "bytes"}
-
-
-def _refuse_unported(ap, args):
-    later = "the port's slice for"
-    checks = [
-        (args.disagg, "--disagg",
-         "disaggregated serving (other paged engine planes)"),
-        (args.prefill_slots is not None, "--prefill-slots",
-         "disaggregated serving (other paged engine planes)"),
-    ]
-    for bad, opt, where in checks:
-        if bad:
-            ap.error(f"{opt} is not ported yet: it comes with {later} "
-                     f"{where}")
 
 
 def main(argv=None):
@@ -110,10 +98,19 @@ def main(argv=None):
                     help="override the sweep-derived demotion age: pages "
                          "untouched for this many ticks become demotion "
                          "candidates (requires active tiering)")
-    # options of the JAX launcher whose planes are later slices
-    ap.add_argument("--no-paged-kv", action="store_true")
-    ap.add_argument("--disagg", action="store_true")
-    ap.add_argument("--prefill-slots", type=int, default=None)
+    ap.add_argument("--no-paged-kv", action="store_true",
+                    help="serve from the dense (slots, max_len) KV cache "
+                         "instead of the paged arena (bucketed one-shot "
+                         "prefill; a ring under a sliding window)")
+    ap.add_argument("--disagg", action="store_true",
+                    help="disaggregated serving: a prefill worker and a "
+                         "decode worker over the shared coherent KV pool; "
+                         "--slots sizes the decode range, finished pages "
+                         "hand off by coherent mapping (RAO ticket + RPC "
+                         "handoff message), never by copy")
+    ap.add_argument("--prefill-slots", type=int, default=None,
+                    help="prefill-worker slot range size (default: same "
+                         "as --slots); requires --disagg")
     ap.add_argument("--moe-routing", default="auto",
                     choices=("auto", "dropless", "capacity"),
                     help="moe archs: auto/dropless (chunked prefill by "
@@ -121,7 +118,6 @@ def main(argv=None):
                          "factor drops; forces one-shot prefill)")
     args = ap.parse_args(argv)
 
-    _refuse_unported(ap, args)
     if args.prefill_chunk is not None and args.prefill_chunk < 0:
         ap.error(f"--prefill-chunk must be >= 0, got {args.prefill_chunk}")
     if args.prefill_buckets < 1:
@@ -129,6 +125,9 @@ def main(argv=None):
     if args.shared_prefix_len < 0:
         ap.error(f"--shared-prefix-len must be >= 0, got "
                  f"{args.shared_prefix_len}")
+    if args.no_paged_kv and args.prefill_chunk:
+        ap.error("--prefill-chunk requires the paged KV plane "
+                 "(drop --no-paged-kv)")
     if args.prefix_cache and args.no_paged_kv:
         ap.error("--prefix-cache requires the paged KV plane "
                  "(drop --no-paged-kv)")
@@ -156,12 +155,15 @@ def main(argv=None):
     if tiering and args.no_paged_kv:
         ap.error("KV tiering requires the paged KV plane "
                  "(drop --no-paged-kv)")
+    if args.disagg and args.no_paged_kv:
+        ap.error("disaggregated serving hands KV pages between workers "
+                 "through the shared paged pool (drop --no-paged-kv)")
+    if args.prefill_slots is not None and not args.disagg:
+        ap.error("--prefill-slots requires --disagg")
+    if args.prefill_slots is not None and args.prefill_slots < 1:
+        ap.error(f"--prefill-slots must be >= 1, got {args.prefill_slots}")
 
     cfg = reduced(get_config(args.arch))
-    if args.no_paged_kv and cfg.family != "hybrid":
-        ap.error(f"--no-paged-kv is not ported yet for {args.arch} "
-                 f"({cfg.family}): it comes with the port's slice for the "
-                 f"dense-cache plane of the dense family")
     if cfg.family == "moe":
         # serving default: dropless routing, so moe joins the chunked
         # bucketed prefill pipeline; --moe-routing capacity restores the
@@ -185,10 +187,16 @@ def main(argv=None):
         sys.exit(2)
     max_len = args.shared_prefix_len + args.prompt_len + args.max_new + 2
     gen = torch.Generator(device=device).manual_seed(args.seed)
-    cls = BatchServer if args.arrival == "all-at-once" else AsyncBatchServer
+    if args.disagg:
+        cls = DisaggEngine if args.arrival == "all-at-once" \
+            else AsyncDisaggEngine
+    else:
+        cls = BatchServer if args.arrival == "all-at-once" \
+            else AsyncBatchServer
+    extra = {"prefill_slots": args.prefill_slots} if args.disagg else {}
     try:
         server = cls(
-            model, batch_slots=args.slots, max_len=max_len,
+            model, batch_slots=args.slots, max_len=max_len, **extra,
             params=model.init(gen, device), device=device,
             paged_kv=False if args.no_paged_kv else "auto",
             prefill_chunk=("auto" if args.prefill_chunk is None
@@ -248,6 +256,15 @@ def main(argv=None):
               f"prefetch, {t['demand_stall_blocks']} demand stalls); "
               f"policy: {pol['flow']} demote_after={pol['demote_after']} "
               f"batch={pol['migrate_batch']}")
+    if args.disagg:
+        ho = server.nic_report()["kv_handoff"]
+        print(f"[serve] disagg: {server.prefill_slots} prefill + "
+              f"{server.decode_slots} decode slots; "
+              f"{server.stats['handoffs']} handoffs "
+              f"({server.stats['handoff_blocks']} pages, "
+              f"{server.stats['handoff_wire_bytes']} wire bytes); "
+              f"page handoff: PCIe {ho['pcie_us']:.2f}us vs CXL "
+              f"{ho['cxl_us']:.2f}us ({ho['speedup_x']}x)")
     if args.prefix_cache:
         pf = kv["prefix"]
         print(f"[serve] prefix cache: {pf['hits']} hits "

@@ -221,15 +221,16 @@ def attn_apply(p, x, cfg):
 
 
 def gqa_attention(q, k, v, *, q_pos, k_pos, k_valid=None,
-                  causal: bool = True):
+                  causal: bool = True, window: int = 0):
     """Plain GQA attention over a dense KV cache (JAX's ``gqa_attention``,
     jnp there and plain PyTorch here, on a card too).
 
     q: (B, S, H, hd); k, v: (B, T, K, hd) with H % K == 0; q_pos (B, S)
     and k_pos (B, T) absolute positions; k_valid: optional (B, T) bool of
-    written cache slots.  Scores in f32, masked to -1e30, softmax in f32;
-    the weights are rounded to v.dtype before P.V, as JAX does.  Returns
-    (B, S, H, hd) in v.dtype.
+    written cache slots; ``window`` > 0 keeps only keys with k_pos > q_pos
+    - window.  Scores in f32, masked to -1e30, softmax in f32; the weights
+    are rounded to v.dtype before P.V, as JAX does.  Returns (B, S, H, hd)
+    in v.dtype.
     """
     B, S, H, hd = q.shape
     T, K = k.shape[1], k.shape[2]
@@ -239,6 +240,8 @@ def gqa_attention(q, k, v, *, q_pos, k_pos, k_valid=None,
     mask = torch.ones((B, S, T), dtype=torch.bool, device=q.device)
     if causal:
         mask &= k_pos[:, None, :] <= q_pos[:, :, None]
+    if window:
+        mask &= k_pos[:, None, :] > q_pos[:, :, None] - window
     if k_valid is not None:
         mask &= k_valid[:, None, :]
     scores = scores.masked_fill(~mask[:, None, None], -1e30)
@@ -247,16 +250,20 @@ def gqa_attention(q, k, v, *, q_pos, k_pos, k_valid=None,
     return out.reshape(B, S, H, hd)
 
 
-def dense_decode_attn_apply(p, x, cfg, ck, cv, cur):
+def dense_decode_attn_apply(p, x, cfg, ck, cv, cur, write_idx, k_pos,
+                            k_valid):
     """Single-token decode attention against one layer's dense cache,
     which it writes first (JAX's ``_decode_attn``: ``compute_kv``, the
-    write at ``cur``, then ``attn_apply(kv=(ck, cv), k_pos, k_valid)``).
+    write at ``write_idx``, then ``attn_apply(kv=(ck, cv), k_pos,
+    k_valid)`` with the config's window).
 
-    x: (B, 1, D) normed; ck/cv: (B, T, K, hd), updated IN PLACE at
-    position ``cur`` (0-d int32 tensor, clamped to T - 1 as
-    ``dynamic_update_slice`` clamps) with the new k/v cast to the cache
-    dtype; every slot attends to positions <= cur.  Returns attn_out
-    (B, 1, D).
+    x: (B, 1, D) normed at position ``cur`` (0-d int32 tensor); ck/cv:
+    (B, T, K, hd), updated IN PLACE at ``write_idx`` (0-d, clamped to
+    T - 1 as ``dynamic_update_slice`` clamps) with the new k/v cast to
+    the cache dtype.  ``k_pos`` (T,) holds each cache row's position and
+    ``k_valid`` (T,) which rows are written: ``arange(T)`` and
+    ``k_pos <= cur`` for a linear cache, the ring's ``pos`` and
+    ``pos >= 0`` under a sliding window.  Returns attn_out (B, 1, D).
     """
     B = x.shape[0]
     T = ck.shape[1]
@@ -264,12 +271,12 @@ def dense_decode_attn_apply(p, x, cfg, ck, cv, cur):
     qpos = cur.long().view(1, 1).expand(B, 1)
     q = _project_q(p, x, cfg, qpos)
     knew, vnew = compute_kv(p, x, cfg, positions=qpos)
-    idx = cur.long().clamp(max=T - 1).view(1)
+    idx = write_idx.long().clamp(max=T - 1).view(1)
     ck.index_copy_(1, idx, knew.to(ck.dtype))
     cv.index_copy_(1, idx, vnew.to(cv.dtype))
-    k_pos = torch.arange(T, device=x.device).expand(B, T)
-    out = gqa_attention(q, ck, cv, q_pos=qpos, k_pos=k_pos,
-                        k_valid=k_pos <= cur.long())
+    out = gqa_attention(q, ck, cv, q_pos=qpos, k_pos=k_pos.long().expand(B, T),
+                        k_valid=k_valid.expand(B, T),
+                        window=cfg.sliding_window)
     return out.reshape(B, 1, H * hd) @ p["wo"]
 
 

@@ -1,9 +1,10 @@
 """Unified model API: ``build_model(cfg) -> Model`` (PyTorch counterpart
 of ``repro/models/model.py``): the dense and moe families on the paged KV
-plane (one-shot and chunked prefill, paged decode), the hybrid family on
-the dense-cache plane (one-shot prefill into a dense cache, decode at a
-shared write index).  As in JAX, the paged callables are ``None`` for a
-family without a uniform KV stack (hybrid).
+plane (one-shot and chunked prefill, paged decode) and on the dense-cache
+plane (bucketed or exact-length prefill into a (slots, max_len) cache, a
+ring under a sliding window, decode at a shared write index), the hybrid
+family on the dense-cache plane.  As in JAX, the paged callables are
+``None`` for a family without a uniform KV stack (hybrid).
 
 Entry points run on the CUDA card unless the caller passes
 ``device="cpu"``; without a card they raise (``repro_torch.device``).
@@ -26,14 +27,14 @@ class Model:
     cfg: ModelConfig
     schema: Any
     prefill: Callable
-    # (params, tokens (B, S), max_len=None) -> (last-position logits,
-    #   cache): dense/moe {"k","v": (L, B, S, K, hd), "cur"} at the exact
-    #   length (max_len=None only); hybrid the dense cache of
-    #   lm_init_cache's structure packed to T = max_len or S
+    # (params, tokens (B, S), max_len=None, valid_len=None) -> (logits at
+    #   the last (valid) position, cache of lm_init_cache's structure
+    #   packed to T = kv_cache_len(max_len or S)); valid_len marks the
+    #   real length of right-padded tokens (dense/moe bucketed prefill)
     init_cache: Optional[Callable] = None
-    # (batch, max_len, device=None) -> dense cache (hybrid)
+    # (batch, max_len, device=None) -> dense cache
     decode_step: Optional[Callable] = None
-    # (params, cache, tokens (B, 1)) -> (logits, cache) (hybrid)
+    # (params, cache, tokens (B, 1)) -> (logits, cache)
     init_paged_cache: Optional[Callable] = None
     # (batch, max_len, block_tokens=16, frames=None, device=None)
     #   -> pages {"kp","vp"} (L, P, bt, K, hd)
@@ -65,20 +66,20 @@ class Model:
 def build_model(cfg: ModelConfig) -> Model:
     transformer.require_ported_family(cfg)
 
-    def prefill(p, t, max_len=None):
-        return transformer.lm_prefill(p, cfg, t, max_len)
+    def prefill(p, t, max_len=None, valid_len=None):
+        return transformer.lm_prefill(p, cfg, t, max_len, valid_len)
 
+    dense_plane = dict(
+        cfg=cfg,
+        schema=transformer.lm_schema(cfg),
+        prefill=prefill,
+        init_cache=lambda batch, max_len, device=None:
+            transformer.lm_init_cache(cfg, batch, max_len,
+                                      device=resolve_device(device)),
+        decode_step=lambda p, c, t: transformer.lm_decode_step(p, cfg, c, t),
+    )
     if cfg.family == "hybrid":
-        return Model(
-            cfg=cfg,
-            schema=transformer.lm_schema(cfg),
-            prefill=prefill,
-            init_cache=lambda batch, max_len, device=None:
-                transformer.lm_init_cache(cfg, batch, max_len,
-                                          device=resolve_device(device)),
-            decode_step=lambda p, c, t:
-                transformer.lm_decode_step(p, cfg, c, t),
-        )
+        return Model(**dense_plane)
 
     def init_paged_cache(batch, max_len, block_tokens=16, frames=None,
                          device=None):
@@ -87,9 +88,7 @@ def build_model(cfg: ModelConfig) -> Model:
             frames=frames)
 
     return Model(
-        cfg=cfg,
-        schema=transformer.lm_schema(cfg),
-        prefill=prefill,
+        **dense_plane,
         init_paged_cache=init_paged_cache,
         paged_decode_step=lambda p, pages, t, btab, lens:
             transformer.lm_paged_decode_step(p, cfg, pages, t, btab, lens),

@@ -2,9 +2,11 @@
 the dense and moe families on the paged KV plane (the exact-length prompt
 forward of one-shot prefill, ``lm_prefill``, and its page write, chunked
 prefill, paged decode; with a sliding window too, whose one-shot rows come
-ring-packed as in JAX), and the zamba2-style hybrid family on the
-dense-cache plane (``lm_init_cache``, ``lm_prefill`` with ``max_len``,
-``lm_decode_step``).
+ring-packed as in JAX), and every ported family on the dense-cache plane
+(``lm_init_cache``, ``lm_prefill`` with ``max_len`` and, for bucketed
+prefill, ``valid_len``, ``lm_decode_step``): the dense and moe families'
+(L, B, T, K, hd) KV cache, a sliding-window ring under a window, and the
+zamba2-style hybrid's cache of group KV and Mamba2 states.
 
 The stacked ``(L, ...)`` block params keep JAX's leaf names and layouts
 (hybrid: ``mamba_groups`` stacked ``(n_groups, every, ...)``,
@@ -32,16 +34,15 @@ from repro_torch.models.layers import (
 )
 
 _PAGED_FAMILIES = ("dense", "moe")
-_DENSE_PLANE_FAMILIES = ("hybrid",)
 _LATER = {"vlm": "VLM on the paged plane",
           "ssm": "xLSTM with continuous admission (non-paged families)",
           "audio": "whisper (encoder-decoder, non-paged families)"}
 
 
 def require_ported_family(cfg):
-    """The port serves the dense and moe families on the paged plane and
-    the hybrid family on the dense-cache plane."""
-    if cfg.family not in _PAGED_FAMILIES + _DENSE_PLANE_FAMILIES:
+    """The port serves the dense and moe families on the paged and the
+    dense-cache plane, and the hybrid family on the dense-cache plane."""
+    if cfg.family not in _PAGED_FAMILIES + ("hybrid",):
         later = _LATER.get(cfg.family, "a later slice")
         raise NotImplementedError(
             f"family {cfg.family!r} is not ported yet; it comes with the "
@@ -57,19 +58,12 @@ def require_paged_family(cfg):
                          f"the dense-cache plane, as in JAX")
 
 
-def require_dense_plane_family(cfg):
-    """Guard of the dense-cache entry points: the hybrid family.  The
-    dense and moe families' dense plane (bucketed prefill, the SWA ring)
-    is a later slice."""
-    require_ported_family(cfg)
-    if cfg.family not in _DENSE_PLANE_FAMILIES:
-        what = "the sliding-window ring (cache['pos']) of the dense " \
-            "(slots, max_len) KV cache" if cfg.sliding_window else \
-            "the dense (slots, max_len) KV cache"
-        raise NotImplementedError(
-            f"{what} of family {cfg.family!r} is not ported yet: it comes "
-            f"with the port's slice for the dense-cache plane of the dense "
-            f"family")
+def kv_cache_len(cfg, seq_len: int) -> int:
+    """Rows of a dense KV cache for ``seq_len`` tokens: the window under a
+    sliding window (the ring), else every position."""
+    if cfg.sliding_window:
+        return min(cfg.sliding_window, seq_len)
+    return seq_len
 
 
 # --------------------------------------------------------------------------
@@ -243,21 +237,36 @@ def _hybrid_forward(params, cfg, x):
 
 def _pack_kv(kv, B, T, cfg, like):
     """Stacked (n, B, S, K, hd) rows sliced or zero-padded to T positions
-    (a prompt longer than T keeps its last T); no groups -> an empty
-    (0, B, T, K, hd) bf16 stack, as in JAX."""
+    (a prompt longer than T keeps its last T); no groups (hybrid) -> an
+    empty (0, B, T, K, hd) bf16 stack, as in JAX."""
     if not kv:
         return torch.zeros((0, B, T, cfg.n_kv_heads, cfg.head_dim),
                            dtype=torch.bfloat16, device=like.device)
     k = torch.stack(kv)
     S = k.shape[2]
-    if S > T:
+    if S >= T:
         return k[:, :, S - T:]
     return F.pad(k, (0, 0, 0, 0, 0, T - S))
 
 
-def lm_prefill(params, cfg, tokens, max_len=None):
-    """Forward over whole prompts at their exact length, returning
-    (logits (B, V) at position S - 1, cache).
+def _ring_pack(k, v, S, T):
+    """JAX's sliding-window ring over a packed (L, B, T, K, hd) pair whose
+    row j holds position S - n + j (n = min(S, T)): row i of the ring
+    holds the position p in [S - n, S) with p % T == i, and ``pos[i]`` is
+    p, or -1 for a row no position reaches (S < T; the row then copies
+    row 0, as JAX's gather does).  Returns (k, v, pos)."""
+    n = min(S, T)
+    pos = torch.arange(S - n, S, device=k.device)
+    ring = torch.full((T,), -1, dtype=torch.int64, device=k.device)
+    ring[pos % T] = pos
+    src = torch.where(ring >= 0, (ring - (S - n)).clamp(min=0),
+                      torch.zeros_like(ring))
+    return k[:, :, src], v[:, :, src], ring.to(torch.int32)
+
+
+def lm_prefill(params, cfg, tokens, max_len=None, valid_len=None):
+    """Forward over whole prompts, returning (logits (B, V) at the last
+    position, cache).
 
     tokens: (B, S) int32, all rows of one length.  Attention runs causal
     over the prompt (``layers.attn_apply``: the ``flash_attention`` kernel
@@ -265,22 +274,39 @@ def lm_prefill(params, cfg, tokens, max_len=None):
     the ``ssd_scan`` kernel on a card); the final norm runs over the whole
     sequence, as JAX's ``lm_hidden`` does.
 
-    Dense and moe (paged plane, ``max_len=None`` only): cache {"k", "v":
-    (L, B, S, K, hd) in the compute dtype, "cur": S as a 0-d int32}.  With
-    a sliding window W the cache keeps the last T = min(W, S) positions in
-    JAX's ring order (row i holds the position p with p % T == i) and adds
-    "pos": (T,) int32, the position each row holds.
-    Under capacity routing the MoE layers dispatch the whole (B, S) group
-    at once, as in JAX.  Hybrid (dense-cache plane): {"k", "v": (n_groups,
-    B, T, K, hd) with T = max_len or S, "ssm": (n_layers, B, h, hd, S) f32,
-    "conv": (n_layers, B, w - 1, di) bf16, "cur": S}.
+    Dense and moe: cache {"k", "v": (L, B, T, K, hd) in the compute dtype,
+    "cur": S as a 0-d int32} with T = ``kv_cache_len(cfg, max_len or
+    S)``: the KV zero-padded to T rows, or its last T positions.  With a
+    sliding window W the rows come in JAX's ring order (row i holds the
+    position p with p % T == i) and "pos": (T,) int32 holds each row's
+    position, -1 where none: the paged plane's one-shot rows (``max_len``
+    None, T = min(W, S)) and the dense plane's ring alike.  ``valid_len``
+    (an int, dense-plane bucketed prefill) marks the real prompt length
+    of right-padded tokens: the logits come from position valid_len - 1
+    and "cur" is valid_len, so decode never attends the pad rows and
+    overwrites them.  Under capacity routing the MoE layers dispatch the
+    whole (B, S) group at once, as in JAX.
+
+    Hybrid: {"k", "v": (n_groups, B, T, K, hd) with T = max_len or S,
+    "ssm": (n_layers, B, h, hd, S) f32, "conv": (n_layers, B, w - 1, di)
+    bf16, "cur": S}.
     """
     require_ported_family(cfg)
-    if max_len is not None:
-        require_dense_plane_family(cfg)
+    if valid_len is not None and (cfg.family == "hybrid"
+                                  or cfg.sliding_window
+                                  or (cfg.family == "moe"
+                                      and cfg.moe_routing != "dropless")):
+        # right-padding is exact only for causal full attention with
+        # pad-invariant routing: not for recurrent state, the ring
+        # packing, or capacity-factor MoE (pads consume expert capacity)
+        raise ValueError(
+            f"bucketed prefill (valid_len) requires a causal-KV family "
+            f"without a sliding window and pad-invariant routing, got "
+            f"family={cfg.family!r} window={cfg.sliding_window}")
     B, S = tokens.shape
     x = _embed(params, tokens)
-    cur = torch.full((), S, dtype=torch.int32, device=tokens.device)
+    n = S if valid_len is None else int(valid_len)
+    cur = torch.full((), n, dtype=torch.int32, device=tokens.device)
     if cfg.family == "hybrid":
         x, ks, vs, states = _hybrid_forward(params, cfg, x)
         x = rmsnorm(x, params["final_norm"], cfg.norm_eps)
@@ -299,18 +325,13 @@ def lm_prefill(params, cfg, tokens, max_len=None):
         ks.append(k)
         vs.append(v)
     x = rmsnorm(x, params["final_norm"], cfg.norm_eps)
-    logits = _logits(params, cfg, x[:, -1:])[:, 0]
-    cache = {"k": torch.stack(ks), "v": torch.stack(vs), "cur": cur}
+    last = min(max(n - 1, 0), S - 1)
+    logits = _logits(params, cfg, x[:, last:last + 1])[:, 0]
+    T = kv_cache_len(cfg, max_len or S)
+    k, v = _pack_kv(ks, B, T, cfg, x), _pack_kv(vs, B, T, cfg, x)
+    cache = {"k": k, "v": v, "cur": cur}
     if cfg.sliding_window:
-        T = min(cfg.sliding_window, S)
-        # ring invariant: row i holds the position p in [S - T, S) with
-        # p % T == i, so row i reads prompt position ring[i]
-        ring = torch.arange(S - T, S, device=x.device)
-        ring = ring[torch.argsort(ring % T)]
-        src = ring - (S - T)
-        cache["k"] = cache["k"][:, :, S - T:][:, :, src]
-        cache["v"] = cache["v"][:, :, S - T:][:, :, src]
-        cache["pos"] = ring.to(torch.int32)
+        cache["k"], cache["v"], cache["pos"] = _ring_pack(k, v, S, T)
     return logits, cache
 
 
@@ -455,17 +476,31 @@ def lm_paged_decode_step(params, cfg, pages, tokens, block_tables, seq_lens):
 
 
 # --------------------------------------------------------------------------
-# Dense-cache plane (hybrid family)
+# Dense-cache plane
 # --------------------------------------------------------------------------
 def lm_init_cache(cfg, batch: int, max_len: int, dtype=None, device=None):
-    """Zero-initialised dense decode cache: {"k", "v": (n_groups, batch, T,
-    K, hd) and "conv": (n_layers, batch, w - 1, di) in ``cfg.cache_dtype``,
-    "ssm": (n_layers, batch, h, hd, S) f32, "cur": 0 as a 0-d int32}."""
-    require_dense_plane_family(cfg)
+    """Zero-initialised dense decode cache, "cur" 0 as a 0-d int32.
+
+    Dense and moe: {"k", "v": (L, batch, T, K, hd)} in ``cfg.cache_dtype``
+    with T = ``kv_cache_len(cfg, max_len)``, and under a sliding window
+    "pos": (T,) int32 all -1 (no ring row written yet).  Hybrid: {"k",
+    "v": (n_groups, batch, max_len, K, hd) and "conv": (n_layers, batch,
+    w - 1, di) in ``cfg.cache_dtype``, "ssm": (n_layers, batch, h, hd, S)
+    f32}."""
+    require_ported_family(cfg)
     if dtype is None:
         dtype = getattr(torch, cfg.cache_dtype)
-    ng, _, _ = hybrid_layout(cfg)
     K, hd = cfg.n_kv_heads, cfg.head_dim
+    cur = torch.zeros((), dtype=torch.int32, device=device)
+    if cfg.family != "hybrid":
+        T = kv_cache_len(cfg, max_len)
+        kv = (cfg.n_layers, batch, T, K, hd)
+        c = {"k": torch.zeros(kv, dtype=dtype, device=device),
+             "v": torch.zeros(kv, dtype=dtype, device=device), "cur": cur}
+        if cfg.sliding_window:
+            c["pos"] = torch.full((T,), -1, dtype=torch.int32, device=device)
+        return c
+    ng, _, _ = hybrid_layout(cfg)
     h, hs, S = cfg.n_ssm_heads, cfg.ssm_head_dim, cfg.ssm_state
     L = cfg.n_layers
     kv = (ng, batch, max_len, K, hd)
@@ -475,23 +510,63 @@ def lm_init_cache(cfg, batch: int, max_len: int, dtype=None, device=None):
                                device=device),
             "conv": torch.zeros((L, batch, cfg.conv_width - 1, cfg.d_inner),
                                 dtype=dtype, device=device),
-            "cur": torch.zeros((), dtype=torch.int32, device=device)}
+            "cur": cur}
+
+
+def _kv_decode_step(params, cfg, cache, tokens):
+    """The dense and moe families' dense-cache decode step (JAX's
+    ``lm_decode_step`` dense branch): every slot decodes at ``cur``.
+    Without a ring the new k/v land in row ``cur`` (clamped to T - 1) and
+    each slot attends rows <= cur; under a sliding window they land in
+    ring row ``cur % T``, ``pos`` records cur there, and each slot attends
+    the rows with pos >= 0 inside the window.  Attention is plain PyTorch
+    (JAX computes it outside any Pallas kernel); the norms and, for moe,
+    the expert FFN run in ``kernels.ops`` on a card."""
+    cur = cache["cur"]
+    T = cache["k"].shape[2]
+    x = _embed(params, tokens)
+    pos = cache.get("pos") if cfg.sliding_window else None
+    if pos is not None:
+        write_idx = cur % T
+        pos.index_copy_(0, write_idx.long().view(1), cur.view(1))
+        k_pos, k_valid = pos, pos >= 0
+    else:
+        write_idx = cur
+        k_pos = torch.arange(T, device=x.device)
+        k_valid = k_pos <= cur.long()
+    for i in range(cfg.n_layers):
+        bp = layer_params(params["blocks"], i)
+        h = rmsnorm(x, bp["ln1"], cfg.norm_eps)
+        x = x + dense_decode_attn_apply(bp["attn"], h, cfg, cache["k"][i],
+                                        cache["v"][i], cur, write_idx,
+                                        k_pos, k_valid)
+        x = _ffn_block(bp, x, cfg)
+    x = rmsnorm(x, params["final_norm"], cfg.norm_eps)
+    out = {"k": cache["k"], "v": cache["v"], "cur": cur + 1}
+    if pos is not None:
+        out["pos"] = pos
+    return _logits(params, cfg, x)[:, 0], out
 
 
 def lm_decode_step(params, cfg, cache, tokens):
     """tokens: (B, 1) int32 -> (logits (B, V), cache).  Every slot decodes
-    at the shared write index ``cur``.
+    at the shared write index ``cur``; the cache is updated IN PLACE and
+    returned with ``cur + 1``.
 
-    The cache is updated IN PLACE (each group's k/v at ``cur``, each
-    layer's ssm state) and returned with ``cur + 1``.  The conv leaf comes
-    back bf16, as JAX's does: a bf16 leaf is written in place, a leaf of
+    Dense and moe: ``_kv_decode_step``.  Hybrid: each group's k/v at
+    ``cur`` and each layer's ssm state in place.  The conv leaf comes back
+    bf16, as JAX's does: a bf16 leaf is written in place, a leaf of
     another dtype (an f32 cache before its first step) is replaced by a
     bf16 one.
     """
-    require_dense_plane_family(cfg)
+    require_ported_family(cfg)
+    if cfg.family != "hybrid":
+        return _kv_decode_step(params, cfg, cache, tokens)
     ng, every, tail = hybrid_layout(cfg)
     cur = cache["cur"]
     x = _embed(params, tokens)
+    k_pos = torch.arange(cache["k"].shape[2], device=x.device)
+    k_valid = k_pos <= cur.long()
     shared = params["shared"]
     ssm, conv = cache["ssm"], cache["conv"]
     new_conv = conv if conv.dtype == torch.bfloat16 \
@@ -508,7 +583,8 @@ def lm_decode_step(params, cfg, cache, tokens):
     for g in range(ng):
         h = rmsnorm(x, shared["ln1"], cfg.norm_eps)
         x = x + dense_decode_attn_apply(shared["attn"], h, cfg,
-                                        cache["k"][g], cache["v"][g], cur)
+                                        cache["k"][g], cache["v"][g], cur,
+                                        cur, k_pos, k_valid)
         x = _ffn_block(shared, x, cfg)
         gp = layer_params(params["mamba_groups"], g)
         for j in range(every):

@@ -2,7 +2,8 @@
 
 ``BatchServer`` is the synchronous tick loop of the JAX engine, on the
 paged plane (dense and moe families) with chunked or one-shot prefill,
-and on the dense-cache plane (the hybrid family, which has no paged path):
+and on the dense-cache plane (``paged_kv=False`` for the dense and moe
+families; the hybrid family, which has no paged path, always):
 
   * requests arrive as wire messages (``core.rpc``) and are billed by the
     SimCXL NIC cost model (``runtime.niccost``);
@@ -38,20 +39,29 @@ and on the dense-cache plane (the hybrid family, which has no paged path):
     (the shared write index ``cur``), each group of up to
     ``prefill_batch`` prefilled in one ``model.prefill`` to ``max_len``
     and spliced into the (slots, max_len) cache; every tick decodes all
-    slots in one ``model.decode_step``, and the pager only accounts.
+    slots in one ``model.decode_step``, and the pager only accounts.  For
+    the dense and moe families (dropless routing) the group's prompts pad
+    up to the next rung of a geometric bucket ladder (``dense_buckets``,
+    ``valid_len`` carrying the real length); under a sliding window the
+    cache is a ring of window rows (``cache["pos"]``) and prefill is
+    exact-length.
 On a CUDA device the steps run their attention, norms, SSD scans (and,
 for the moe family, the expert GEMMs and the gated combine) in the
 hand-written kernels of ``kernels.ops``; on the CPU in the plain versions.
+Dense-cache decode attention stays plain PyTorch, as JAX computes it
+outside any Pallas kernel.
 
 ``AsyncBatchServer`` is the asyncio engine on the same tick loop:
 ``submit_async`` resolves a future per request while ``run_engine``
 admits and decodes continuously; ``runtime.loadgen`` drives it with
 arrival traces.
 
-Every option outside these planes raises, naming the later slice of the
-port that brings it: the dense cache of the dense and moe families
-(``paged_kv=False``, with its sliding-window ring) and the disaggregated
-engines.
+``DisaggEngine`` splits the slot table into a prefill worker and a decode
+worker over the one shared page arena: a finished prefill claims a decode
+slot with an RAO fetch-and-add ticket on its own counter word, crosses as
+an RPC wire message carrying its block-table row, and its pages are
+re-homed by ``KVBlockPager.handoff`` (no KV bytes move), priced by
+``niccost.on_kv_handoff``.  ``AsyncDisaggEngine`` is its asyncio engine.
 """
 from __future__ import annotations
 
@@ -59,7 +69,8 @@ import asyncio
 import dataclasses
 import math
 import time
-from typing import Callable, Dict, List, Optional, Set
+from collections import deque
+from typing import Callable, Deque, Dict, List, Optional, Set
 
 import numpy as np
 import torch
@@ -79,6 +90,25 @@ REQ_SCHEMA = {1: "int", 2: "bytes", 3: "int", "_subs": {}}
 # fields: 1=request_id, 2=prompt tokens (int32 bytes), 3=max_new_tokens
 RESP_SCHEMA = {1: "int", 2: "bytes", "_subs": {}}
 # fields: 1=request_id, 2=generated tokens (int32 bytes)
+
+# disagg prefill->decode handoff message (DisaggEngine): the per-request
+# unit of inter-worker wire traffic.  Int-heavy by construction (ticket +
+# repeated block-table page ids) plus 'str' prompt metadata.
+HANDOFF_SCHEMA = {1: "int", 2: "int", 3: "int", 4: "int", 5: "int",
+                  6: "int", 7: "str", 8: "str", "_subs": {}}
+# fields: 1=request_id, 2=decode-slot RAO ticket, 3=prompt tokens,
+#         4=max_new, 5=generated tokens so far (repeated), 6=block-table
+#         page ids in position order, -1 = window-released (repeated),
+#         7=model family, 8=handoff lane tag
+# the decode worker's slot-ticket counter lives at its own RAO address:
+# the linearization guarantee is per-address (core.rao), so the
+# prefill-admission counter (addr 0) and this one serialize independently
+DECODE_TICKET_ADDR = 64
+
+
+def _as_list(v) -> list:
+    """Normalize a decoded repeated field (scalar when one element)."""
+    return v if isinstance(v, list) else [v]
 
 
 def encode_request(req_id: int, prompt: List[int], max_new: int) -> bytes:
@@ -111,11 +141,6 @@ def _prefill_buckets(chunk: int, n_buckets: int):
     return tuple(sorted(sizes))
 
 
-def _later(what: str, slice_name: str):
-    return NotImplementedError(f"{what} is not ported yet: it comes with "
-                               f"the port's slice for {slice_name}")
-
-
 def _tree_nbytes(tree) -> int:
     if isinstance(tree, dict):
         return sum(_tree_nbytes(v) for v in tree.values())
@@ -126,13 +151,15 @@ def _splice_rows_tree(cache, cache1, slots: torch.Tensor, n_slots: int):
     """Write a B=k prefill cache into batch rows ``slots`` of the shared
     cache, in place (``index_copy_``): stacked (L, B, ...) leaves on axis
     1, per-batch (B, ...) leaves on axis 0, cast to the shared leaf's
-    dtype; scalars pass through (the caller owns the write index)."""
+    dtype.  Scalars and 1-d leaves pass through: the caller owns the
+    shared write index and the sliding-window ring's (T,) positions,
+    which no slot count may be mistaken for a batch dim of."""
     k = slots.shape[0]
     for name, full in cache.items():
         one = cache1[name]
-        if one.dim() == 0:
+        if one.dim() < 2:
             continue
-        if one.dim() >= 2 and one.shape[1] == k and full.shape[1] == n_slots:
+        if one.shape[1] == k and full.shape[1] == n_slots:
             full.index_copy_(1, slots, one.to(full.dtype))
         elif one.shape[0] == k and full.shape[0] == n_slots:
             full.index_copy_(0, slots, one.to(full.dtype))
@@ -152,9 +179,10 @@ def _tree_device(tree) -> Optional[torch.device]:
 class BatchServer:
     """Slot-based batching: on the paged KV plane chunked bucketed or
     one-shot grouped prefill plus batched paged decode; on the dense-cache
-    plane (``paged_kv`` resolves there for a model without a paged path)
-    equal-length admission waves, grouped prefill spliced into the dense
-    cache, and batched decode of every slot.
+    plane (``paged_kv=False``, and what ``auto`` resolves to for a model
+    without a paged path) equal-length admission waves, grouped (bucketed)
+    prefill spliced into the dense cache, and batched decode of every
+    slot.
 
     Per-request lifecycle is the scheduler state machine; slot claims go
     through the RAO ticket sequencer; the pager owns the block table of
@@ -191,10 +219,22 @@ class BatchServer:
         # launch.serve) runs the chunked bucketed pipeline like the rest.
         chunk_invariant = cfg.family != "moe" or \
             cfg.moe_routing == "dropless"
+        # paged sliding-window attention: release_behind frees the blocks
+        # behind the window as it advances; the dense plane keeps a ring
+        self.window = int(cfg.sliding_window or 0)
+        dense_bucketed = False
         if not self.paged:
             if prefill_chunk not in ("auto", None, 0):
                 raise ValueError("prefill_chunk requires the paged KV plane "
                                  "(paged_kv)")
+            # dense-plane bucketed one-shot prefill: under "auto", prompt
+            # lengths pad up through a geometric bucket table (valid_len
+            # carries the real length).  Right-padding is exact only for
+            # causal full-attention KV families with pad-invariant
+            # routing; explicit prefill_chunk=0 keeps exact-length prefill
+            dense_bucketed = (prefill_chunk in ("auto", None)
+                              and chunk_invariant and not self.window
+                              and cfg.family in ("dense", "moe"))
             prefill_chunk = 0
         elif prefill_chunk in ("auto", None):
             prefill_chunk = min(64, max_len) if chunk_invariant else 0
@@ -208,6 +248,20 @@ class BatchServer:
                 "capacity-factor MoE drops depend on co-resident "
                 "tokens; serve with cfg.moe_routing='dropless' or "
                 "use prefill_chunk=0")
+        self.prefill_chunk = prefill_chunk
+        self.chunk_buckets = _prefill_buckets(prefill_chunk, prefill_buckets) \
+            if prefill_chunk else ()
+        self.dense_buckets = ()
+        if dense_bucketed:
+            if prefill_buckets < 1:
+                raise ValueError(f"prefill_buckets must be >= 1, got "
+                                 f"{prefill_buckets}")
+            # the dense table runs the full geometric ladder from max_len
+            # down to the 8-token floor (not just prefill_buckets rungs):
+            # its rungs must reach max_len to cover long prompts, and the
+            # ladder keeps padding <= 2x (+ the floor)
+            self.dense_buckets = _prefill_buckets(
+                max_len, max(prefill_buckets, max_len.bit_length()))
         # -------------------------------------------------- KV tiering
         # kv_overcommit > 1 (or an explicit kv_near_blocks) splits the
         # pooled arena into a near (HBM) tier the kernels read and a far
@@ -240,15 +294,6 @@ class BatchServer:
                 raise ValueError("kv_demote_after requires active KV "
                                  "tiering (kv_overcommit > 1 or "
                                  "kv_near_blocks < pool size)")
-        # the knobs are checked first, as in JAX: a conflict is a
-        # ValueError whichever plane it names
-        if not paged_kv and has_paged:
-            what = "the sliding-window ring of the dense (slots, max_len) " \
-                "KV cache plane" if cfg.sliding_window else \
-                "the dense (slots, max_len) KV cache plane"
-            raise _later(f"{what} (paged_kv=False) of the dense and moe "
-                         f"families", "the dense-cache plane of the dense "
-                         "family")
         # prefix caching shares KV pool pages across requests whose
         # prompts extend a block-aligned cached prefix; off by default —
         # retained prefixes keep pool pages referenced past request drain
@@ -260,9 +305,6 @@ class BatchServer:
                              f"{prefix_watermark}")
         self.prefix_cache = bool(prefix_cache)
         self.prefix_watermark = float(prefix_watermark)
-        # paged sliding-window attention: release_behind frees the blocks
-        # behind the window as it advances
-        self.window = int(cfg.sliding_window or 0)
 
         self.model = model
         self.device = resolve_device(device)
@@ -278,9 +320,6 @@ class BatchServer:
                              f"{self.device}")
         self.params = params
         self.family = cfg.family
-        self.prefill_chunk = prefill_chunk
-        self.chunk_buckets = _prefill_buckets(prefill_chunk, prefill_buckets) \
-            if prefill_chunk else ()
         self.prefill_batch = max(1, prefill_batch)
         self.far_pages = None
         if self.paged:
@@ -349,6 +388,10 @@ class BatchServer:
         # plain callables (jit_fns() lists them under the JAX names)
         self._prefill_exact = model.prefill
         self._prefill = lambda p, t: model.prefill(p, t, max_len)
+        # bucket-padded one-shot prefill of the dense plane: tokens padded
+        # to a bucket length, valid_len carries the real prompt length
+        self._prefill_bucketed = lambda p, t, vl: model.prefill(p, t,
+                                                                max_len, vl)
         self._decode = model.decode_step
         self._page_write = model.paged_prefill_write
         self._chunk_prefill = model.paged_prefill_chunk
@@ -393,8 +436,11 @@ class BatchServer:
         """Name -> engine step callable (the JAX engine's jit registry
         names; here plain eager functions)."""
         if not self.paged:
-            return {"prefill": self._prefill, "decode": self._decode,
-                    "splice": _splice_rows_tree}
+            fns = {"prefill": self._prefill, "decode": self._decode,
+                   "splice": _splice_rows_tree}
+            if self.dense_buckets:
+                fns["prefill_bucketed"] = self._prefill_bucketed
+            return fns
         fns = {"prefill_exact": self._prefill_exact,
                "paged_decode": self._paged_decode,
                "page_write": self._page_write}
@@ -429,7 +475,7 @@ class BatchServer:
         # decentralized slot claim: FAA ticket mod slots (binding to a
         # concrete free slot happens at admission time)
         req.ticket = self.table.claim_ticket()
-        req.slot = req.ticket % self.slots
+        req.slot = self._ticket_hint(req.ticket)
         self._unbilled_tickets += 1
         if req.arrival_t == 0.0:
             req.arrival_t = time.perf_counter()
@@ -443,6 +489,33 @@ class BatchServer:
         """Accept submissions again after a drain."""
         self._closed = False
 
+    # ------------------------------------------------------ worker hooks
+    # The monolithic engine owns the whole slot table and moves finished
+    # prefills straight into DECODE.  DisaggEngine overrides these to
+    # partition the table into a prefill-worker range and a decode-worker
+    # range and to route finished prefills through the wire handoff.
+    def _ticket_hint(self, ticket: int) -> int:
+        """Slot hint derived from the admission FAA ticket."""
+        return ticket % self.slots
+
+    def _bind_admit(self, req: Request) -> int:
+        """Bind an admitted request to a slot (the prefill worker's range
+        under disaggregation)."""
+        return self.table.bind(req)
+
+    def _admit_free(self) -> int:
+        """Slots the admission loop may still fill this tick."""
+        return self.table.free
+
+    def _after_prefill(self, req: Request, now: float):
+        """A request's prompt is fully resident and its first token is
+        emitted: the monolith decodes it in place; disagg parks it for
+        the decode-worker handoff."""
+        req.to(RequestState.DECODE, now)
+
+    def _do_handoffs(self, now: float):
+        """Monolith: no handoff stage."""
+
     def _fail(self, req: Request, now: float) -> bytes:
         req.to(RequestState.FAILED, now)
         self.stats["failed"] += 1
@@ -452,24 +525,31 @@ class BatchServer:
         return buf
 
     def _admit_group(self, reqs: List[Request], now: float):
-        """Prefill a group of equal-prompt-length requests in one
-        exact-length call (B = len(reqs)), then install it: on the paged
-        plane one page write that touches only the admitted slots' pages,
-        on the dense plane one in-place splice of the slots' cache rows
-        and the shared write index."""
+        """Prefill a group of equal-prompt-length requests in one call
+        (B = len(reqs)), then install it: on the paged plane one page
+        write that touches only the admitted slots' pages, on the dense
+        plane one in-place splice of the slots' cache rows and the shared
+        write index (and ring positions).  The dense plane's bucketed
+        prefill pads the prompts up to the first bucket that holds them."""
         for req in reqs:
             req.to(RequestState.PREFILL, now)
-        slot_arr = [self.table.bind(req) for req in reqs]
+        slot_arr = [self._bind_admit(req) for req in reqs]
         toks = np.asarray([r.prompt for r in reqs], np.int32)
         S = int(toks.shape[1])
-        prefill = self._prefill_exact if self.paged else self._prefill
-        logits, cache1 = prefill(self.params, self._to_device(toks))
+        bucket = next((b for b in self.dense_buckets if b >= S), None)
+        if bucket is not None:
+            padded = np.pad(toks, ((0, 0), (0, bucket - S)))
+            logits, cache1 = self._prefill_bucketed(
+                self.params, self._to_device(padded), S)
+        else:
+            prefill = self._prefill_exact if self.paged else self._prefill
+            logits, cache1 = prefill(self.params, self._to_device(toks))
         # only the (G,) greedy ids leave the device
         nxt = torch.argmax(logits, dim=-1).cpu().numpy()
         t1 = time.perf_counter()
         for row, req in enumerate(reqs):
             req.generated.append(int(nxt[row]))
-            req.to(RequestState.DECODE, t1)
+            self._after_prefill(req, t1)
 
         tw = time.perf_counter()
         if self.paged:
@@ -510,6 +590,12 @@ class BatchServer:
             # lengths, so overwriting it never moves it under an in-flight
             # request
             self.cache["cur"] = cache1["cur"]
+            if "pos" in self.cache:
+                # the shared sliding-window ring positions: every in-flight
+                # slot sits at the same cur, and the freshly prefilled ring
+                # is the canonical pos state there (left all -1, decode
+                # would mask the whole prompt dead)
+                self.cache["pos"] = cache1["pos"]
             for slot in slot_arr:
                 self.pager.admit(slot, self.table.active[slot].pos)
         if self.sync_timers:
@@ -539,7 +625,7 @@ class BatchServer:
                 self._admit_group(group, now)
                 group.clear()
 
-        while self.table.free > len(group):
+        while self._admit_free() > len(group):
             if self.tiered:
                 head = next(iter(self.queue), None)
                 if head is not None:
@@ -587,7 +673,7 @@ class BatchServer:
         prompt pages are allocated chunk by chunk, and the first token
         comes out of the final chunk."""
         req.to(RequestState.PREFILL, now)
-        self.table.bind(req)
+        self._bind_admit(req)
         if self.prefix_cache:
             hit, _ = self.pager.admit_cached(req.slot, req.prompt, 0)
             if hit:
@@ -688,7 +774,7 @@ class BatchServer:
                     slot, max(0, req.prefilled - self.window + 1))
             if req.prefilled >= len(req.prompt):
                 req.generated.append(int(nxt[slot]))
-                req.to(RequestState.DECODE, now)
+                self._after_prefill(req, now)
                 self.stats["prefills"] += 1
                 if self.prefix_cache:
                     # chunk writes are position-exact, so the complete
@@ -850,7 +936,8 @@ class BatchServer:
     def step(self) -> List[bytes]:
         """One scheduler tick: admit from queue (one-shot: prefilling each
         admission group), plan the tiered engine's engaged set, advance
-        chunked prefills by one chunk, one batched decode step over the
+        chunked prefills by one chunk, hand finished prefills to the
+        decode worker (disagg only), one batched decode step over the
         DECODE slots."""
         now = time.perf_counter()
         self.stats["ticks"] += 1
@@ -872,6 +959,10 @@ class BatchServer:
         self._engaged = self._plan_engaged()
         if self.prefill_chunk:
             self._prefill_step()
+        # disagg: move HANDOFF-parked requests into decode-worker slots
+        # before harvest, so an already-exhausted handoff (max_new == 1)
+        # finishes this same tick
+        self._do_handoffs(now)
         # prefill emits the first token: single-token requests are already
         # complete and must not burn a decode step
         finished += self._harvest(now)
@@ -1065,3 +1156,132 @@ class AsyncBatchServer(BatchServer):
         """Wait (without closing) until nothing is queued or in flight."""
         while not self._drained():
             await asyncio.sleep(poll_s)
+
+
+class DisaggEngine(BatchServer):
+    """Disaggregated prefill/decode serving over the coherent KV pool: the
+    composition of the paper's two killer apps on real traffic.
+
+    The slot table is partitioned into a **prefill worker** range
+    ``[0, prefill_slots)`` and a **decode worker** range
+    ``[prefill_slots, prefill_slots + batch_slots)``; both workers share
+    ONE ``KVBlockPager`` arena (the CXL-coherent pool), so prefix caching
+    and near/far tiering span workers unchanged.  The prefill worker
+    admits requests and prefills them (chunked or one-shot) in its range;
+    when a prompt is fully resident it parks the request in HANDOFF and,
+    per request, claims a decode-slot RAO FAA ticket
+    (``DECODE_TICKET_ADDR``, its own counter word), encodes a
+    ``HANDOFF_SCHEMA`` wire message (ticket, block-table row, prompt
+    metadata) through ``core.rpc`` and bills it via ``niccost.on_egress``.
+    The decode worker decodes the message (``on_ingress``), binds a slot
+    in its own range from the ticket hint, and re-homes the pages with
+    ``KVBlockPager.handoff``, a pure metadata move over the coherent pool,
+    billed by ``niccost.on_kv_handoff`` as coherent mapping against the
+    per-block PCIe DMA re-copy a non-coherent deployment would pay.
+
+    Greedy decode equals the monolith's at f32: moving a row between
+    slots changes nothing the kernels compute for it.  Backpressure is
+    natural: with every decode slot busy, finished prefills wait in
+    HANDOFF holding their prefill slot, which pauses admission, so no
+    token is ever dropped.
+    """
+
+    def __init__(self, model, *, batch_slots: int = 4,
+                 prefill_slots: Optional[int] = None, **kw):
+        # batch_slots sizes the decode worker (the monolith meaning: how
+        # many requests decode at once); the prefill worker gets its own
+        # range on top, by default the same size
+        self.decode_slots = int(batch_slots)
+        self.prefill_slots = int(batch_slots if prefill_slots is None
+                                 else prefill_slots)
+        if self.prefill_slots < 1:
+            raise ValueError(f"prefill_slots must be >= 1, got "
+                             f"{self.prefill_slots}")
+        if self.decode_slots < 1:
+            raise ValueError(f"batch_slots must be >= 1, got "
+                             f"{self.decode_slots}")
+        super().__init__(model,
+                         batch_slots=self.prefill_slots + self.decode_slots,
+                         **kw)
+        if not self.paged:
+            raise ValueError("disaggregated serving requires the paged KV "
+                             "plane (paged_kv) — the handoff moves pool "
+                             "pages by block-table row")
+        self._handoffs: Deque[Request] = deque()
+        self.stats.update({"handoffs": 0, "handoff_blocks": 0,
+                           "handoff_wire_bytes": 0})
+
+    # ------------------------------------------------- worker partition
+    def _ticket_hint(self, ticket: int) -> int:
+        return ticket % self.prefill_slots
+
+    def _bind_admit(self, req: Request) -> int:
+        return self.table.bind(req, lo=0, hi=self.prefill_slots)
+
+    def _admit_free(self) -> int:
+        return self.table.free_in(0, self.prefill_slots)
+
+    def _after_prefill(self, req: Request, now: float):
+        # the first token is emitted here (TTFT); a HANDOFF slot drops out
+        # of the engagement plan, so its pages may demote while parked and
+        # promote on the decode side's next plan
+        req.to(RequestState.HANDOFF, now)
+        self._handoffs.append(req)
+
+    # ----------------------------------------------------- wire handoff
+    def _handoff_msg(self, req: Request, row: np.ndarray) -> Dict:
+        return {1: req.req_id,
+                2: req.decode_ticket,
+                3: len(req.prompt),
+                4: req.max_new,
+                5: [int(t) for t in req.generated],
+                6: [int(p) for p in row],
+                7: self.family,
+                8: "prefill->decode"}
+
+    def _do_handoffs(self, now: float):
+        """Drain HANDOFF-parked requests into free decode-worker slots,
+        one wire message per request."""
+        moved = False
+        while self._handoffs and \
+                self.table.free_in(self.prefill_slots, self.slots):
+            req = self._handoffs.popleft()
+            src = req.slot
+            full_row = np.asarray(self.pager.block_table()[src])
+            live = np.nonzero(full_row >= 0)[0]
+            # occupied span: leading -1s are window-released blocks the
+            # decode worker must keep masked dead at the same columns
+            span = int(live[-1]) + 1 if live.size else 0
+            # prefill worker: claim the decode slot ticket + publish
+            req.decode_ticket = self.table.claim_ticket(DECODE_TICKET_ADDR)
+            self._unbilled_tickets += 1
+            msg = self._handoff_msg(req, full_row[:span])
+            buf = wire.encode(msg)
+            self.niccost.on_egress(msg)
+            # decode worker: consume the message, bind in its own range,
+            # map the same pool pages (no KV bytes move)
+            got = wire.decode(buf, HANDOFF_SCHEMA)
+            self.niccost.on_ingress(got)
+            self.table.release(src)
+            req.slot = self.prefill_slots + got[2] % self.decode_slots
+            dst = self.table.bind(req, lo=self.prefill_slots, hi=self.slots)
+            n_live = self.pager.handoff(src, dst)
+            self.niccost.on_kv_handoff(n_live, self.pager.block_bytes)
+            new_row = np.asarray(self.pager.block_table()[dst])
+            if _as_list(got.get(6, [])) != new_row[:span].tolist():
+                raise RuntimeError(
+                    f"handoff page-id mismatch for req {req.req_id}: wire "
+                    f"{got.get(6)} != pager row {new_row[:span].tolist()}")
+            req.to(RequestState.DECODE, now)
+            self.stats["handoffs"] += 1
+            self.stats["handoff_blocks"] += n_live
+            self.stats["handoff_wire_bytes"] += len(buf)
+            moved = True
+        if moved:
+            self._tier_dirty = True            # slot rows moved ranges
+
+
+class AsyncDisaggEngine(AsyncBatchServer, DisaggEngine):
+    """Asyncio front-end over the disaggregated engine (the engine
+    coroutine drives ``step``, which runs admission, prefill, handoff and
+    decode each tick)."""

@@ -472,7 +472,8 @@ def test_bf16_prefill_and_decode_step_normwise(layout):
 
 def test_model_api_on_the_dense_plane(tail_model):
     """Hybrid has no paged callables (as JAX's build_model); the dense
-    family's dense cache is a later slice and says so."""
+    family has both planes, its dense cache an (L, B, max_len, K, hd) KV
+    stack (the hybrid's dense-plane tests stay as they were)."""
     _, tcfg, _, _ = tail_model
     model = build_model(tcfg)
     assert model.paged_decode_step is None and model.init_paged_cache is None
@@ -481,11 +482,13 @@ def test_model_api_on_the_dense_plane(tail_model):
     cache = model.init_cache(2, MAX_LEN, device="cpu")
     assert cache["k"].shape[:3] == (2, 2, MAX_LEN)
     dense = reduced(get_config("mistral-nemo-12b"))
-    with pytest.raises(NotImplementedError, match="dense-cache plane"):
-        build_model(dense).prefill(None, torch.zeros((1, 4), dtype=torch.int32),
-                                   MAX_LEN)
-    with pytest.raises(NotImplementedError, match="dense-cache plane"):
-        ttr.lm_init_cache(dense, 2, MAX_LEN)
+    dmodel = build_model(dense)
+    assert dmodel.init_paged_cache is not None and \
+        dmodel.decode_step is not None
+    dcache = ttr.lm_init_cache(dense, 2, MAX_LEN)
+    assert sorted(dcache) == ["cur", "k", "v"]
+    assert dcache["k"].shape == (dense.n_layers, 2, MAX_LEN,
+                                 dense.n_kv_heads, dense.head_dim)
     with pytest.raises(ValueError, match="no paged KV path"):
         ttr.lm_init_paged_cache(tcfg, 2, MAX_LEN)
 

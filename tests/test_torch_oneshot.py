@@ -408,13 +408,18 @@ def test_lm_prefill_matches_jax(name):
 
 
 def test_lm_prefill_refuses_sliding_window_by_name():
-    """The paged plane's exact-length prefill takes a window; the dense
-    ring (``max_len`` given) is still a later slice, refused by name."""
+    """The exact-length prefill takes a window, on both planes (the dense
+    one packs a ring of window rows); bucketed prefill (``valid_len``)
+    does not, and is refused with JAX's words."""
     _, tcfg = _configs(sliding_window=8)
     params = build_model(tcfg).init(torch.Generator().manual_seed(0), "cpu")
-    with pytest.raises(NotImplementedError, match="sliding-window ring"):
+    _, cache = ttr.lm_prefill(params, tcfg,
+                              torch.ones((1, 9), dtype=torch.int32),
+                              max_len=16)
+    assert cache["k"].shape[2] == 8 and cache["pos"].shape == (8,)
+    with pytest.raises(ValueError, match="without a sliding window"):
         ttr.lm_prefill(params, tcfg, torch.ones((1, 9), dtype=torch.int32),
-                       max_len=16)
+                       max_len=16, valid_len=7)
 
 
 # ------------------------------------------------------------ page write

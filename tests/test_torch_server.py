@@ -5,8 +5,7 @@ Both ``BatchServer``s serve the same ragged trace (the lengths of
 the decoded wire outputs must be identical token for token on the four
 chunked planes, with no pages left in use after the drain (the one-shot
 planes are in ``tests/test_torch_oneshot.py``).  The port also
-refuses, by name, every option whose plane is a later slice, and imports
-nothing of JAX or of the JAX package.
+imports nothing of JAX or of the JAX package.
 """
 import ast
 import pathlib
@@ -92,31 +91,6 @@ def test_engine_wire_outputs_match_jax(setup, plane):
     assert tsrv.stats["decode_steps"] == jsrv.stats["decode_steps"]
 
 
-UNPORTED = {
-    "dense-cache": (dict(paged_kv=False), "dense-cache plane"),
-}
-
-
-@pytest.mark.parametrize("name", sorted(UNPORTED))
-def test_engine_refuses_unported_planes_by_name(setup, name):
-    _, _, tmodel, tparams, _ = setup
-    kw, words = UNPORTED[name]
-    with pytest.raises(NotImplementedError, match=words):
-        BatchServer(tmodel, batch_slots=2, max_len=MAX_LEN, params=tparams,
-                    device="cpu", nic_cost=None, **kw)
-
-
-def test_engine_refuses_sliding_window():
-    """The paged plane serves a window; the dense-cache plane's ring
-    (paged_kv=False) is still a later slice, refused by name."""
-    tcfg = reduced(get_config("mistral-nemo-12b")).replace(
-        sliding_window=16, **TINY)
-    with pytest.raises(NotImplementedError,
-                       match="sliding-window ring.*paged_kv=False"):
-        BatchServer(build_model(tcfg), batch_slots=2, max_len=MAX_LEN,
-                    device="cpu", nic_cost=None, paged_kv=False)
-
-
 def test_engine_without_card_raises_unless_cpu_requested(setup):
     _, _, tmodel, tparams, _ = setup
     if torch.cuda.is_available():
@@ -157,17 +131,6 @@ def test_launcher_drains_on_cpu(capsys):
                       "--prefill-chunk", "8"])
     assert len(out) == 3
     assert "3/3 completed" in capsys.readouterr().out
-
-
-@pytest.mark.parametrize("argv", [
-    ["--no-paged-kv"], ["--disagg"], ["--prefill-slots", "2"],
-], ids=lambda a: a[0].lstrip("-"))
-def test_launcher_refuses_unported_options_by_name(argv, capsys):
-    with pytest.raises(SystemExit) as ex:
-        serve.main(["--device", "cpu", *argv])
-    assert ex.value.code == 2
-    err = capsys.readouterr().err
-    assert argv[0] in err and "not ported" in err
 
 
 def test_port_imports_neither_jax_nor_the_jax_package():

@@ -191,13 +191,6 @@ def test_lm_prefill_ring_matches_jax(danube, S):
     assert int(tc["cur"]) == int(jc["cur"]) == S
 
 
-def test_lm_prefill_with_max_len_refuses_the_ring_by_name(danube):
-    _, _, tmodel, tparams = danube
-    with pytest.raises(NotImplementedError,
-                       match="sliding-window ring.*not ported"):
-        tmodel.prefill(tparams, torch.ones((1, 9), dtype=torch.int32), 32)
-
-
 @pytest.mark.parametrize("S", [13, 16, 21, 35],
                          ids=["W-3", "W", "W+5", "2W+3"])
 def test_paged_prefill_write_ring_rows_match_jax(S):
@@ -312,11 +305,3 @@ def test_launcher_serves_danube_on_cpu(capsys):
                           "--max-new", "3", *extra])
         assert len(out) == 3
         assert "3/3 completed" in capsys.readouterr().out
-
-
-def test_dense_cache_plane_refuses_the_ring_by_name(danube):
-    _, _, tmodel, tparams = danube
-    with pytest.raises(NotImplementedError,
-                       match="sliding-window ring.*not ported"):
-        BatchServer(tmodel, batch_slots=2, max_len=48, params=tparams,
-                    device="cpu", nic_cost=None, paged_kv=False)
