@@ -8,11 +8,14 @@ worker over one page arena) and on the dense-cache plane (bucketed
 prefill), granite-moe-3b-a800m on the dense-cache plane too, the
 dense-cache plane for the hybrid family (zamba2-7b), and the paged
 sliding-window plane (h2o-danube-3-4b, window 4096), chunked, one-shot
-and with the copy-on-write prefix cache, then the dense-cache ring.
+and with the copy-on-write prefix cache, then the dense-cache ring; then
+the xLSTM family (xlstm-125m) admitted continuously on the dense-cache
+plane, and the vlm family (qwen2-vl-7b: M-RoPE, q/k/v biases) chunked and
+one-shot, with its image rows through lm_prefill.
 
     python3 chip_smoke.py            # every phase; needs one CUDA card
     python3 chip_smoke.py --quick    # device, build, kernel checks only
-    python3 chip_smoke.py --profile  # also trace seven of the engines
+    python3 chip_smoke.py --profile  # also trace ten of the engines
 
 Phases (each prints its own lines and wall time; any failure raises):
   1. device   — card name, and name + power limit from nvidia-smi;
@@ -62,7 +65,7 @@ Phases (each prints its own lines and wall time; any failure raises):
                 windowed cases, S != T causal and not, and odd head dims
                 (8, 40, 200: zero-padded to 16 in the bf16 kernel), each
                 in bf16 (tensor-core kernel) and f32 (CUDA-core kernel);
-                rmsnorm at D in {1536, 3584, 5120, 7168, 64, 130}, N in
+                rmsnorm at D in {768, 1536, 3584, 5120, 7168, 64, 130}, N in
                 {1, 8, 512, 836, 1200}, both dtypes, on the row-spread
                 kernel (LAUNCHES["rmsnorm_row"] one up) beside the one-warp
                 kernel of rmsnorm.cu called through the library, printing
@@ -88,7 +91,12 @@ Phases (each prints its own lines and wall time; any failure raises):
                 window are also held one by one (|got - plain| over hd
                 <= tol |plain| a row; the same for every causal windowed
                 case with S = T), and the kernel called at window - 1
-                and window + 1 must fail that check.
+                and window + 1 must fail that check; and qwen2-vl-7b's
+                heads (28 / 4: a GQA group of 7, hd 128) in bf16 and f32:
+                paged_attention at mistral's lengths,
+                paged_prefill_attention with chunks of 8 and 64,
+                flash_attention at S in {17, 64, 189, 209, 300}, B in
+                {1, 4}, and 2 x 1,100 (the image prefill).
                 Tolerance: the attention kernels |got - plain| <= tol, the
                 others |got - plain| <= tol + tol * |plain|, with tol =
                 2e-2 in bf16 and 1e-4 in f32 (TF32 off); ssd_scan 1e-3 in
@@ -283,6 +291,29 @@ Phases (each prints its own lines and wall time; any failure raises):
                 the cache hits, the hot run allocates fewer blocks, and
                 each hot request's first-token logits lie within 2e-2
                 normwise of the cold run's.
+  9. xlstm and vlm — full-width 12-layer xlstm-125m (D 768, 4 heads of
+                192, sLSTM at layers 3 and 9) on the dense-cache plane
+                (8 slots, max_len 512, prefill_batch 1): 16 requests of 32
+                new tokens, 15 prompts in [17, 300] and one of 600 (past
+                max_len, five mLSTM chunks), 4 submitted at once and the
+                others one a tick, admitted continuously (several prompt
+                lengths admitted beside decoding slots); every request
+                completes 32 tokens, nothing leaks, the pager counts the
+                states as fixed bytes a slot, rmsnorm launches 13 a model
+                call and nothing else launches; requests 0, 1, 2 and the
+                600-token one re-run alone (alone_drift): first-token
+                logits at batch 1 within 2e-2 normwise, the first decode
+                tick with the request's state in all 8 rows equal to the
+                engine's bit for bit, at batch 1 its drift printed.  Then
+                full-width 28-layer qwen2-vl-7b (D 3584, 28 / 4 heads of
+                128, d_ff 18,944, q/k/v biases, M-RoPE), chunked and
+                one-shot with mistral's traces and checks (launches at L
+                28: 57 norms a model call); after one-shot, two prompts of
+                1,100 tokens through lm_prefill with image rows: the
+                embedding rows of their first 1,024 tokens at positions
+                equal on all three sections must give the text prefill's
+                logits bit for bit, and on a 32 x 32 grid (t 0; text from
+                32) finite logits that differ.
 The line before the last is the kernels' JSON record; the last line is
 {"ok": true, "device": {...}}.  Without a card, or without the rest of
 the repository beside it, the script exits non-zero and prints no result.
@@ -361,6 +392,7 @@ MOE = ("moe_gmm", "rao_scatter_add")
 ONESHOT = ("flash_attention", "rmsnorm")
 DENSE_ARCH, MOE_ARCH = "mistral-nemo-12b", "granite-moe-3b-a800m"
 HYBRID_ARCH, SWA_ARCH = "zamba2-7b", "h2o-danube-3-4b"
+SSM_ARCH, VLM_ARCH = "xlstm-125m", "qwen2-vl-7b"
 DEV = torch.device("cuda")
 SPIN_CYCLES = 20_000_000         # ~10 ms at the H100's ~2 GHz SM clock
 
@@ -524,6 +556,7 @@ def phase_kernels(errs):
             check_decode(rng, errs, torch.bfloat16, 2e-2, label, H, K, hd,
                          bt, nb, lens, window)
     check_swa_kernels(rng, errs)
+    check_vlm_kernels(rng, errs)
     check_moe_kernels(rng, errs)
     check_rao_kernels(rng, errs)
     check_oneshot_kernels(rng, errs)
@@ -723,6 +756,25 @@ def check_swa_kernels(rng, errs):
                       bt, W, ctx=SWA_PREFILL_CTX, nb=528)
 
 
+# qwen2-vl-7b's heads: 28 query heads over 4 kv heads (G 7), hd 128
+VLM = dict(H=28, K=4, hd=128, bt=16)
+
+
+def check_vlm_kernels(rng, errs):
+    """The paged attention kernels at qwen2-vl-7b's heads, a GQA group of
+    7 (the served paths' first), in bf16 and f32 against the plain
+    version: decode at mistral's lengths (a new slot, -1 entries inside
+    the live range), chunks of 8 and 64 (flash_attention's cases are
+    check_oneshot_kernels')."""
+    H, K, hd, bt = (VLM[k] for k in ("H", "K", "hd", "bt"))
+    for dtype, tol in ((torch.bfloat16, 2e-2), (torch.float32, 1e-4)):
+        check_decode(rng, errs, dtype, tol, "qwen2-vl G 7", H, K, hd, bt,
+                     512 // bt, MISTRAL_LENS, 0)
+        for C in (8, 64):
+            check_prefill(rng, errs, dtype, tol, f"qwen2-vl G 7 C {C}", H,
+                          K, hd, C, bt, 0)
+
+
 def close_normwise(got, exp, tol):
     """max |got - exp| <= tol * max |exp|, and finite."""
     g, e = got.float(), exp.float()
@@ -853,8 +905,11 @@ def check_oneshot_kernels(rng, errs):
             (rng.randn(*shape) * scale).astype(np.float32)).to(DEV, dtype)
     # (B, S, T, H, K, hd, window, causal)
     flash_cases = [(B, S, S, H, K, hd, 0, True)
-                   for H, K, hd in ((32, 8, 128), (24, 8, 64), (32, 32, 112))
+                   for H, K, hd in ((32, 8, 128), (24, 8, 64), (32, 32, 112),
+                                    (VLM["H"], VLM["K"], VLM["hd"]))
                    for S in (17, 64, 189, 209, 300) for B in (1, 4)]
+    # qwen2-vl's image prefill: 2 prompts of 1,100 tokens
+    flash_cases += [(2, 1100, 1100, VLM["H"], VLM["K"], VLM["hd"], 0, True)]
     flash_cases += [(4, 300, 300, 32, 8, 128, 100, True),
                     (4, 209, 209, 24, 8, 64, 64, True),
                     (1, 189, 189, 32, 32, 112, 17, True),
@@ -926,14 +981,15 @@ def rms_geometry_line(x):
 
 
 def check_rmsnorm_kernels(rng, errs):
-    """rmsnorm at the served widths (1536, 3584, 5120, 7168), the q/k-norm
-    width 64 and an odd width (130: an element a unit), at decode (1, 8)
+    """rmsnorm at the served widths (768, 1536, 3584, 5120, 7168), the
+    q/k-norm width 64 and an odd width (130: an element a unit), at decode
+    (1, 8)
     and prefill (512, 836, 1200) row counts, both dtypes, on the
     row-spread kernel (LAUNCHES["rmsnorm_row"] one up), with the one-warp
     kernel of rmsnorm.cu, called through the library, held to the same
     tolerance beside it."""
     for dtype, tol in ((torch.bfloat16, 2e-2), (torch.float32, 1e-4)):
-        for D in (1536, 3584, 5120, 7168, 64, 130):
+        for D in (768, 1536, 3584, 5120, 7168, 64, 130):
             for N in (1, 8, 512, 836, 1200):
                 x = torch.from_numpy(rng.randn(N, D).astype(np.float32)) \
                     .to(DEV, dtype)
@@ -1142,8 +1198,19 @@ def decode_outputs(bufs):
     return out
 
 
-def drain_outputs(srv, trace):
+def drain_outputs(srv, trace, stagger=False):
+    """Every request of ``trace`` through ``srv``: at once, or, with
+    ``stagger``, two at once and then one after each step (admissions
+    between decode ticks, as the JAX suite's TestContinuousBatchingExact
+    submits)."""
     wires = [encode_request(i, p, m) for i, (p, m) in enumerate(trace)]
+    if stagger:
+        bufs = []
+        for i, w in enumerate(wires):
+            if i >= 2:
+                bufs.extend(srv.step())
+            srv.submit_wire(w)
+        return decode_outputs(bufs + srv.run_until_drained())
     if isinstance(srv, AsyncBatchServer):
         # every request at once through the engine coroutine
         bufs, _ = run_closed_loop(srv, wires,
@@ -1170,14 +1237,16 @@ MONOLITH = {DisaggEngine: BatchServer, AsyncDisaggEngine: AsyncBatchServer}
 
 
 def leaked(srv):
-    """Pages (paged plane, near or far) or pool blocks (dense plane) still
+    """Pages (paged plane, near or far) or pool blocks and bytes (dense
+    plane: a slot's fixed-state region too, all of an ssm slot's) still
     held after a drain."""
     kv = srv.kv_stats()
     if kv["paged_kv"]:
         far = kv["tier"]["far_resident"] if kv["tiered"] else 0
         return kv["paged"]["pages_in_use"] + far + \
             kv["blocks_allocated"] - kv["blocks_freed"]
-    return kv["blocks_allocated"] - kv["blocks_freed"]
+    return kv["blocks_allocated"] - kv["blocks_freed"] + \
+        sum(t["used"] for t in kv["pool"]["tiers"].values())
 
 
 @phase("tiny")
@@ -1194,8 +1263,13 @@ def phase_tiny():
     each also untiered and as the 4-slot monolith on the card) and the
     async one with 1 prefill slot (also as the 3-slot monolith); then the
     dense-cache plane of the dense family (bucketed), of dropless MoE
-    (bucketed, prefill_batch 4) and of danube (the ring)."""
+    (bucketed, prefill_batch 4) and of danube (the ring); then xLSTM on
+    the dense-cache plane with staggered submission (continuous
+    admission) and the reduced qwen2-vl (M-RoPE, biases) chunked."""
     dense = reduced(get_config(DENSE_ARCH)).replace(**TINY)
+    xlstm = reduced(get_config(SSM_ARCH)).replace(**TINY)
+    vlm = reduced(get_config(VLM_ARCH)).replace(
+        param_dtype="float32", cache_dtype="float32")
     moe = reduced(get_config(MOE_ARCH)).replace(**TINY)
     hybrid = reduced(get_config(HYBRID_ARCH)).replace(**dict(TINY,
                                                              n_layers=5))
@@ -1236,6 +1310,9 @@ def phase_tiny():
          dict(paged_kv=False, prefill_batch=4), grouped_trace, 4,
          ONESHOT + MOE),
         ("dense-ring", swa, dict(paged_kv=False), tiny_trace, 3, ONESHOT),
+        ("xlstm continuous", xlstm, dict(stagger=True), tiny_trace, 2,
+         ("rmsnorm",)),
+        ("qwen2vl chunked", vlm, {}, tiny_trace, 3, CHUNKED_KERNELS),
     )
     for label, cfg, kw, trace_of, slots, kernels in engines:
         model = build_model(cfg)
@@ -1243,6 +1320,7 @@ def phase_tiny():
         trace = trace_of(cfg.vocab)
         kw = dict(kw)
         cls = kw.pop("engine", BatchServer)
+        stagger = kw.pop("stagger", False)
         outs = {}
         tier = ""
         # a tiered engine's twin: the same engine untiered, on the card;
@@ -1264,7 +1342,7 @@ def phase_tiny():
                           device=dev, nic_cost=None, **run_kw)
             if srv.tiered:
                 srv.warmup_migrations()
-            outs[run] = drain_outputs(srv, trace)
+            outs[run] = drain_outputs(srv, trace, stagger)
             if run_kw is kw and bool(srv.tiered) != bool(
                     set(kw) & set(TIER_KNOBS)):
                 raise AssertionError(f"tiny {label}: tiering is "
@@ -1307,6 +1385,11 @@ def phase_tiny():
             if not srv.paged and any(launched[k] for k in ATTENTION):
                 raise AssertionError(f"the dense-cache tiny {label} engine "
                                      f"launched a paged kernel: {launched}")
+            if cfg.family == "ssm" and any(
+                    n for k, n in launched.items()
+                    if k not in ("rmsnorm", "rmsnorm_row")):
+                raise AssertionError(f"the tiny {label} engine launched a "
+                                     f"kernel besides rmsnorm: {launched}")
             if dev == "cpu" and any(launched.values()):
                 raise AssertionError(f"the CPU {label} engine launched a "
                                      f"kernel")
@@ -1384,6 +1467,10 @@ PATHS = {
                       dict(paged_kv=False, prefill_batch=4)),
     "danube dense-ring": (SWA_ARCH, "dense-ring", None,
                           dict(paged_kv=False, prefill_batch=4)),
+    "xlstm continuous": (SSM_ARCH, "continuous", None, {}),
+    "qwen2vl chunked": (VLM_ARCH, "chunked", None, {}),
+    "qwen2vl one-shot": (VLM_ARCH, "one-shot", None,
+                         dict(prefill_chunk=0, prefill_batch=4)),
 }
 # the tiered paths' engines hold 1,024 tokens a slot: 8 x 64 = 512 pages
 # of 16 tokens, of which kv_overcommit=2 leaves 256 near frames; prompts
@@ -1412,7 +1499,19 @@ PATH_PROMPTS = {
     "danube dense-ring": lambda rng: np.repeat([5000, 300], 4),
     "mistral tiered flat": lambda rng: rng.randint(512, 961, size=16),
     "mistral tiered": lambda rng: rng.randint(512, 961, size=16),
+    # xLSTM: 15 prompts in [17, 300] and, the first to come one a tick,
+    # one of 600 tokens, past max_len 512 (five mLSTM chunks)
+    "xlstm continuous": lambda rng: np.insert(rng.randint(17, 301, size=15),
+                                              STAGGER_FIRST, 600),
 }
+# paths whose first STAGGER_FIRST requests come at once and the others one
+# a tick, each after a step: admissions land between decode ticks, at
+# prompt lengths that differ, while other slots decode (continuous
+# admission).  Half the 8 slots: with all 8 filled at once, every request
+# of 32 new tokens would finish on one tick and the next 8 come in on one
+# tick into an empty engine
+STAGGER_FIRST = 4
+STAGGERED_PATHS = ("xlstm continuous",)
 # the prefix paths: 8 requests that share a 1,024-token prefix (a multiple
 # of the chunk and the block), cold and with the prefix cache; the first
 # one's tail is one token and it is served alone until its prompt is in
@@ -1608,9 +1707,12 @@ def check_tables(srv, recs):
 
 def norms_per_call(cfg):
     """RMSNorms of one model call: ln1 and ln2 of each attention block, a
-    pre-norm and a gated norm per Mamba2 layer (hybrid), the final norm."""
+    pre-norm and a gated norm per Mamba2 layer (hybrid), a pre-norm per
+    xLSTM layer (ssm), the final norm."""
     if cfg.family == "hybrid":
         return 2 * transformer.hybrid_layout(cfg)[0] + 2 * cfg.n_layers + 1
+    if cfg.family == "ssm":
+        return cfg.n_layers + 1
     return 2 * cfg.n_layers + 1
 
 
@@ -1619,10 +1721,11 @@ def expected_launches(cfg, st, groups, paged):
     and its one-shot group calls: every model call (chunk tick, decode
     tick, group call) runs ``norms_per_call`` norms and, for moe, 3L
     expert GEMMs and L combines; a group call runs one flash attention a
-    layer (hybrid: a group) and, hybrid, one SSD scan per Mamba2 layer;
-    decode ticks run one paged attention a layer on the paged plane and
-    none on the dense-cache plane (its decode attention is plain
-    PyTorch, as in JAX)."""
+    layer (hybrid: a group; ssm: none, its recurrences are plain PyTorch,
+    as JAX's are jnp) and, hybrid, one SSD scan per Mamba2 layer; decode
+    ticks run one paged attention a layer on the paged plane and none on
+    the dense-cache plane (its decode attention is plain PyTorch, as in
+    JAX)."""
     L, chunks, decodes = cfg.n_layers, st["prefill_chunks"], \
         st["decode_steps"]
     calls = chunks + decodes + groups
@@ -1635,6 +1738,8 @@ def expected_launches(cfg, st, groups, paged):
            "rao_scatter_add_onchip": 0, "ssd_scan": 0, "ssd_scan_mma": 0}
     if not paged:
         exp["paged_attention"] = 0
+    if cfg.family == "ssm":
+        exp["flash_attention"] = 0
     if cfg.family == "hybrid":   # every ssd_scan call on the tensor cores
         exp["flash_attention"] = transformer.hybrid_layout(cfg)[0] * groups
         exp["ssd_scan"] = exp["ssd_scan_mma"] = L * groups
@@ -1670,10 +1775,15 @@ def phase_serve(path, card, seed=0):
         ffn += (f", Mamba2 d_inner {cfg.d_inner} ({cfg.n_ssm_heads} heads x "
                 f"{cfg.ssm_head_dim}, state {cfg.ssm_state}), layout "
                 f"{transformer.hybrid_layout(cfg)}")
+    if cfg.family == "ssm":
+        ffn = f"sLSTM at layers {cfg.slstm_layers}, mLSTM at the others"
+    if cfg.family == "vlm":
+        ffn += (f", M-RoPE sections {cfg.m_rope_sections}, q/k/v biases "
+                f"{cfg.use_bias}")
     print(f"[serve] {cfg.name}: {cfg.n_layers} layers, d_model "
           f"{cfg.d_model}, heads {cfg.n_heads}/{cfg.n_kv_heads}, hd "
           f"{cfg.head_dim}, {ffn}, vocab {cfg.vocab}; "
-          f"{n_params / 1e9:.2f} B bf16 params initialised in "
+          f"{n_params / 1e9:.3f} B bf16 params initialised in "
           f"{time.perf_counter() - t0:.1f} s")
     max_len = SWA_MAX_LEN if cfg.sliding_window else \
         TIERED_MAX_LEN if path in TIERED_PATHS else 512
@@ -1713,14 +1823,18 @@ def phase_serve(path, card, seed=0):
                   for n in plens]]
     n_req = sum(len(w) for w in waves)
     prompt_toks = sum(len(p) for w in waves for p in w)
-    if path not in ASYNC_PATHS:     # the async path submits on its trace
-        for i, p in enumerate(waves[0]):
+    # the async path submits on its trace, a staggered one the rest a tick
+    n_first = STAGGER_FIRST if path in STAGGERED_PATHS else len(waves[0])
+    if path not in ASYNC_PATHS:
+        for i, p in enumerate(waves[0][:n_first]):
             srv.submit_wire(encode_request(i, p, 32))
     finite = []
     group_rows = []
     group_widths = []   # tokens of each group call (bucket-padded or exact)
-    first = {}      # request -> its first token's logits (chunked paths)
-    second = {}     # request -> its first decode tick's logits (paged)
+    # the path's own requests' logits (phase_profile's later ones, ids
+    # from 1000, are left out)
+    first = {}      # request -> its first token's logits
+    second = {}     # request -> its first decode tick's logits
 
     def checked(step, rows=None):
         def run(*a):
@@ -1739,11 +1853,28 @@ def phase_serve(path, card, seed=0):
                 # a tiered tick chunks only its engaged slots
                 if req.state.name == "PREFILLING" and \
                         len(req.prompt) - req.prefilled <= \
-                        srv.prefill_chunk and \
+                        srv.prefill_chunk and req.req_id < n_req and \
                         (srv._engaged is None or slot in srv._engaged):
                     first[req.req_id] = lg[slot].clone()
             return lg, out
         return run
+    admissions = []     # (tick, prompt length, slots decoding) a group
+
+    def group_first_logits(step):
+        def run(*a):
+            lg, out = step(*a)
+            # the group's requests, bound in its row order, wait in PREFILL
+            group = [r for r in srv.active.values()
+                     if r.state.name == "PREFILL"]
+            for row, req in enumerate(group):
+                if req.req_id < n_req:
+                    first[req.req_id] = lg[row].clone()
+            admissions.append((srv.stats["ticks"], len(group[0].prompt),
+                               sum(r.state.name == "DECODE"
+                                   for r in srv.active.values())))
+            return lg, out
+        return run
+
     def second_logits(step):
         def run(*a):
             lg, out = step(*a)
@@ -1751,6 +1882,7 @@ def phase_serve(path, card, seed=0):
                 # on a disaggregated engine this tick is the first to read
                 # the pages through the decode worker's re-homed table row
                 if req.state.name == "DECODE" and len(req.generated) == 1 \
+                        and req.req_id < n_req \
                         and (srv._engaged is None or slot in srv._engaged):
                     second[req.req_id] = lg[slot].clone()
             return lg, out
@@ -1782,8 +1914,8 @@ def phase_serve(path, card, seed=0):
         srv._chunk_prefill = first_logits(checked(srv._chunk_prefill))
         srv._prefill_exact = checked(srv._prefill_exact, group_rows)
     else:
-        srv._decode = checked(srv._decode)
-        srv._prefill = checked(srv._prefill, group_rows)
+        srv._decode = second_logits(checked(srv._decode))
+        srv._prefill = group_first_logits(checked(srv._prefill, group_rows))
         srv._prefill_bucketed = checked(srv._prefill_bucketed, group_rows)
     ring = RingCheck(srv) if not srv.paged and srv.window else None
     handoffs = DisaggCheck(srv) if disagg else None
@@ -1800,6 +1932,8 @@ def phase_serve(path, card, seed=0):
     if cfg.family == "hybrid":
         periods["flash_attention"] = (transformer.hybrid_layout(cfg)[0], 0)
         periods["rmsnorm"] = (norms_per_call(cfg), 3)
+    if cfg.family == "ssm":
+        periods["rmsnorm"] = (norms_per_call(cfg), 0)
     recorders = [Recorder(key.removesuffix("_down"), n, off, key)
                  for key, (n, off) in periods.items()]
     shared = SharedPages(srv, PREFIX_LEN // srv.pager.block_tokens) \
@@ -1820,6 +1954,9 @@ def phase_serve(path, card, seed=0):
                                   **ASYNC_PATHS[path])
             out, metrics = run_closed_loop(srv, wires, arrivals)
             bufs.extend(out)
+        for i in range(n_first, len(waves[0])):    # one more a tick
+            bufs.extend(srv.step())
+            srv.submit_wire(encode_request(i, waves[0][i], 32))
         for wave in waves[1:]:      # step until every prompt so far is in
             while len(srv.queue) or any(r.state.name == "PREFILLING"
                                         for r in srv.active.values()):
@@ -1938,7 +2075,21 @@ def phase_serve(path, card, seed=0):
             raise AssertionError(f"the handoffs do not add up: {st}, "
                                  f"resident {handoffs.resident}, tickets "
                                  f"{tickets}, {ho}")
-    if not srv.paged and srv.family != "hybrid":
+    if srv.family == "ssm":
+        per_slot = sum(t.nbytes for t in _leaves(srv.cache["states"])) \
+            // srv.slots
+        mid = [a for a in admissions if a[2]]
+        print(f"[serve] {name}: {per_slot} bytes of recurrent state a slot "
+              f"(the pager's fixed bytes {srv.pager.fixed_bytes}, "
+              f"{srv.pager.per_token_bytes} a token); admissions (tick, "
+              f"prompt tokens, slots decoding) {admissions}: {len(mid)} "
+              f"beside decoding slots, over {st['ticks']} ticks [{card}]")
+        if srv.pager.per_token_bytes or per_slot != srv.pager.fixed_bytes \
+                or len({a[1] for a in mid}) < 2:
+            raise AssertionError(f"not continuous, or the pager took the "
+                                 f"recurrent state for KV: {admissions}, "
+                                 f"{srv.kv_stats()}")
+    elif not srv.paged and srv.family != "hybrid":
         print(f"[serve] {name}: group calls of {group_rows} rows at "
               f"{group_widths} tokens (buckets {srv.dense_buckets or 'off'}"
               f"); dense cache {tuple(srv.cache['k'].shape)}, "
@@ -1976,10 +2127,13 @@ def phase_serve(path, card, seed=0):
         raise AssertionError("pages leaked")
     if not bool(torch.stack(finite).all()):
         raise AssertionError("non-finite logits on the main path")
-    if oneshot and group_rows != [4] * (n_req // 4):
+    if oneshot and group_rows != [srv.prefill_batch] * (
+            n_req // srv.prefill_batch):
         raise AssertionError(f"admission groups did not form: {group_rows}")
     if cfg.family == "hybrid":
         required = HYBRID_KERNELS
+    elif cfg.family == "ssm":
+        required = ("rmsnorm",)
     elif not srv.paged:
         required = ONESHOT + (MOE if cfg.family == "moe" else ())
     else:
@@ -1990,7 +2144,9 @@ def phase_serve(path, card, seed=0):
                              f"{launches} vs {expected}")
     return name, launches, recs, srv, dict(outs=outs, first=first,
                                            second=second, kv=kv,
-                                           metrics=metrics, tier=tier)
+                                           metrics=metrics, tier=tier,
+                                           prompts=dict(enumerate(
+                                               p for w in waves for p in w)))
 
 
 def normwise(ref, got):
@@ -2061,6 +2217,107 @@ def compare_prefix(cold, hot):
                              f"{cold['kv']['blocks_allocated']} blocks, hot "
                              f"{hot['kv']}")
     first_token_drift(cold, hot, len(PREFIX_TAILS), "prefix hot vs cold")
+
+
+# the xLSTM path's requests re-run alone: three of the first to come and
+# the one of 600 tokens
+ALONE_RIDS = (0, 1, 2, STAGGER_FIRST)
+
+
+def _rows(tree, n):
+    """A batch-1 cache with its row repeated n times (scalars as they are)."""
+    if isinstance(tree, dict):
+        return {k: _rows(v, n) for k, v in tree.items()}
+    return tree.expand(n, *tree.shape[1:]).contiguous() if tree.dim() \
+        else tree.clone()
+
+
+def alone_drift(srv, run, rids, label, first_bound=2e-2):
+    """Requests ``rids`` of a dense-plane run of the ssm family, each
+    re-run alone through the model's own prefill and decode step, from a
+    fresh state.  Its first-token logits (batch 1, as the engine
+    prefilled it) must lie within ``first_bound`` normwise of the
+    engine's.  Its first decode tick, where both gave the same first
+    token, is run twice: with its state in every row of a batch of the
+    engine's slot count, where every GEMM has the engine's shape, the
+    logits must equal the engine's bit for bit (the splice, the other
+    slots and continuous admission changed nothing); at batch 1 the drift
+    is printed: bf16 GEMMs of another shape round elsewhere (0.013-0.033
+    normwise on xlstm-125m's 12 layers on an H100), the floor of any
+    batch-1 comparison, not a fault."""
+    model, params = srv.model, srv.params
+    firsts, ticks, exact, differ = {}, {}, {}, []
+    for rid in rids:
+        toks = torch.tensor([run["prompts"][rid]], dtype=torch.int32,
+                            device=DEV)
+        lg, cache = model.prefill(params, toks, srv.max_len)
+        tok = lg.argmax(-1).view(1, 1).to(torch.int32)
+        firsts[rid] = normwise(lg[0], run["first"][rid])
+        if int(tok) != run["outs"][rid][0]:
+            differ.append(rid)
+            continue
+        wide, _ = model.decode_step(params, _rows(cache, srv.slots),
+                                    tok.expand(srv.slots, 1).contiguous())
+        one, _ = model.decode_step(params, cache, tok)
+        exact[rid] = bool(torch.equal(wide[0], run["second"][rid]))
+        ticks[rid] = normwise(one[0], run["second"][rid])
+    print(f"[{label}] requests alone vs the engine: first-token logits "
+          f"{', '.join(f'{r} {e:.3g}' for r, e in firsts.items())} (tol "
+          f"{first_bound:g}); first decode tick at {srv.slots} rows equal "
+          f"bit for bit {exact}, at batch 1 "
+          f"{', '.join(f'{r} {e:.3g}' for r, e in ticks.items())} "
+          f"(bf16 GEMM shapes; printed); another first token: {differ}")
+    if max(firsts.values()) > first_bound or 2 * len(exact) < len(rids) \
+            or not all(exact.values()):
+        raise AssertionError(f"{label}: alone vs engine: {firsts}, "
+                             f"{exact}, {differ}")
+
+
+def check_image_prefill(srv, card):
+    """qwen2-vl's image rows at full width: two prompts of 1,100 tokens
+    through ``lm_prefill`` (1) with ``vis_embeds`` the embedding rows of
+    their first n_patch_tokens (1,024) tokens and ``pos_ids`` their
+    positions on all three sections, whose logits must equal the
+    text-only prefill's bit for bit (M-RoPE at equal sections computes
+    RoPE's angles; the rows are the same), and (2) with the image rows on
+    a 32 x 32 grid (t 0, h and w over the patches) and the text from
+    position 32 on, whose logits must be finite and differ."""
+    model, params, cfg = srv.model, srv.params, srv.model.cfg
+    B, S, P, side = 2, 1100, cfg.n_patch_tokens, 32
+    rng = np.random.RandomState(11)
+    toks = torch.from_numpy(rng.randint(1, cfg.vocab - 1, size=(B, S))
+                            .astype(np.int32)).to(DEV)
+    vis = params["emb"][toks[:, :P].long()]
+    flat = torch.arange(S, device=DEV)[None, :, None].expand(B, S, 3)
+    i = torch.arange(P, device=DEV)
+    grid = torch.zeros((B, S, 3), dtype=torch.int64, device=DEV)
+    grid[:, :P, 1], grid[:, :P, 2] = i // side, i % side
+    grid[:, P:] = (side + torch.arange(S - P, device=DEV))[None, :, None]
+    torch.cuda.synchronize()
+    before = dict(ops.LAUNCHES)
+    t0 = time.perf_counter()
+    text, _ = model.prefill(params, toks)
+    same, _ = model.prefill(params, toks, vis_embeds=vis, pos_ids=flat)
+    img, _ = model.prefill(params, toks, vis_embeds=vis, pos_ids=grid)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launched = {k: ops.LAUNCHES[k] - before[k] for k in ("flash_attention",
+                                                         "rmsnorm")}
+    exact = torch.equal(same, text)
+    diff = normwise(text, same)
+    moved = normwise(same, img)
+    print(f"[image] {cfg.name}: 3 prefills of {B} x {S} tokens in "
+          f"{wall:.3f} s ({launched}); image rows = their token rows at "
+          f"equal sections: logits equal to the text prefill's "
+          f"{'bit for bit' if exact else f'within {diff:.3g} normwise'}; "
+          f"on the {side} x {side} grid: finite "
+          f"{bool(torch.isfinite(img).all())}, {moved:.3g} normwise from "
+          f"them [{card}]")
+    if not exact or not bool(torch.isfinite(img).all()) or moved == 0 or \
+            launched != {"flash_attention": 3 * cfg.n_layers,
+                         "rmsnorm": 3 * norms_per_call(cfg)}:
+        raise AssertionError(f"image prefill: exact {exact} ({diff}), grid "
+                             f"{moved}, launches {launched}")
 
 
 def _leaves(tree):
@@ -2980,6 +3237,24 @@ def main(argv=None):
         del srv, recs
         free_device()
     compare_prefix(*runs)
+    # the xLSTM (ssm) family, admitted continuously on the dense-cache
+    # plane, then qwen2-vl (M-RoPE, q/k/v biases) chunked and one-shot and
+    # its image rows through lm_prefill
+    name, by_path[name], recs, srv, run = phase_serve("xlstm continuous",
+                                                      card)
+    alone_drift(srv, run, ALONE_RIDS, "xlstm alone vs engine")
+    if args.profile:
+        phase_profile(srv)
+    del srv, recs, run
+    free_device()
+    for path in ("qwen2vl chunked", "qwen2vl one-shot"):
+        name, by_path[name], recs, srv, _ = phase_serve(path, card)
+        if path == "qwen2vl one-shot":
+            check_image_prefill(srv, card)
+        if args.profile:
+            phase_profile(srv)
+        del srv, recs
+        free_device()
     record = {"kernels": [
         dict(name=name, route="cuda", **KERNELS[name],
              launches=sum(n[name] for n in by_path.values()),

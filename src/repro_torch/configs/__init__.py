@@ -15,6 +15,8 @@ ARCH_MODULES = [
     "h2o_danube_3_4b",
     "mistral_nemo_12b",
     "zamba2_7b",
+    "xlstm_125m",
+    "qwen2_vl_7b",
 ]
 
 _loaded = False

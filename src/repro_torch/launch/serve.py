@@ -6,11 +6,14 @@ mistral-nemo-12b (``--arch granite-moe-3b-a800m``: a reduced granite MoE,
 dropless routing unless ``--moe-routing capacity``; ``--arch
 h2o-danube-3-4b``: a reduced sliding-window model, window 16, on the paged
 plane; ``--arch zamba2-7b``: a reduced zamba2 hybrid on the dense-cache
-plane), as the JAX launcher does, on the CUDA card (``--device cpu`` for
-the plain PyTorch path), submits wire-encoded requests, drains them
-through chunked (``--prefill-chunk 0``: one-shot) prefill and batched
-paged decode (the hybrid: one-shot prefill into the dense cache and
-batched dense decode), and reports tokens, scheduler stats and the
+plane; ``--arch xlstm-125m``: a reduced xLSTM on the dense-cache plane,
+admitted continuously; ``--arch qwen2-vl-7b``: a reduced qwen2-vl, M-RoPE
+and q/k/v biases, served as text on every plane), as the JAX launcher
+does, on the CUDA card (``--device cpu`` for the plain PyTorch path),
+submits wire-encoded requests, drains them through chunked
+(``--prefill-chunk 0``: one-shot) prefill and batched paged decode (the
+hybrid and xLSTM: one-shot prefill into the dense cache and batched dense
+decode), and reports tokens, scheduler stats and the
 SimCXL-projected CXL-NIC vs PCIe-NIC host cost.  ``--prefix-cache``
 (with ``--shared-prefix-len``) shares the pages of a common prompt prefix
 copy-on-write.  ``--kv-overcommit`` / ``--kv-near-blocks`` (with

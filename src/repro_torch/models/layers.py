@@ -3,8 +3,9 @@
 
 Numerics follow the JAX reference exactly: ``rmsnorm`` in f32 with
 ``(1 + w)`` (the ``rmsnorm`` kernel on a card); RoPE rotates the two
-halves (not interleaved pairs) with frequencies computed in numpy f32;
-``silu`` in f32 cast back before the ``* u``; the new k/v cast to the
+halves (not interleaved pairs) with frequencies computed in numpy f32,
+and M-RoPE (qwen2-vl) takes each frequency's position from its section
+of (t, h, w); ``silu`` in f32 cast back before the ``* u``; the new k/v cast to the
 pool dtype before attention.
 """
 from __future__ import annotations
@@ -130,6 +131,44 @@ def apply_rope(x, positions, theta: float):
                      dim=-1).to(x.dtype)
 
 
+@functools.lru_cache(maxsize=16)
+def _m_rope_sections_on(sections: Tuple[int, ...], device: torch.device):
+    """(half,) section index of each frequency, on ``device`` once."""
+    sec = np.concatenate([np.full(s, i) for i, s in enumerate(sections)])
+    return torch.from_numpy(sec).long().to(device)
+
+
+def apply_m_rope(x, pos3, sections: Tuple[int, ...], theta: float):
+    """qwen2-vl M-RoPE.  x: (B, S, H, hd); pos3: (B, S, 3) int (t, h, w).
+
+    ``sections`` partitions the half-dim; section i rotates with
+    ``pos3[..., i]``.  With the three positions equal it computes RoPE's
+    angles."""
+    hd = x.shape[-1]
+    half = hd // 2
+    assert sum(sections) == half, (sections, half)
+    freqs = _rope_freqs_on(hd, float(theta), x.device)
+    sec = _m_rope_sections_on(tuple(sections), x.device)
+    pos = pos3.float()[..., sec]                          # (B, S, half)
+    ang = pos * freqs
+    cos = torch.cos(ang)[..., None, :]
+    sin = torch.sin(ang)[..., None, :]
+    x1, x2 = x[..., :half].float(), x[..., half:].float()
+    return torch.cat([x1 * cos - x2 * sin, x1 * sin + x2 * cos],
+                     dim=-1).to(x.dtype)
+
+
+def _rope(x, cfg, positions, pos3=None):
+    """JAX's rotary choice in ``attn_apply`` and the paged paths: M-RoPE
+    where the config has sections and ``pos3`` is given, else RoPE at
+    ``positions``; nothing without a theta."""
+    if cfg.rope_theta <= 0:
+        return x
+    if cfg.m_rope_sections and pos3 is not None:
+        return apply_m_rope(x, pos3, cfg.m_rope_sections, cfg.rope_theta)
+    return apply_rope(x, positions, cfg.rope_theta)
+
+
 # --------------------------------------------------------------------------
 # Schemas for the attention and MLP blocks
 # --------------------------------------------------------------------------
@@ -160,13 +199,7 @@ def mlp_schema(cfg, d_ff: Optional[int] = None) -> Dict[str, ParamDef]:
     }
 
 
-def _check_rope(cfg):
-    if cfg.m_rope_sections:
-        raise NotImplementedError("M-RoPE (vlm family) is a later slice of "
-                                  "the port (MoE and VLM on the paged plane)")
-
-
-def _project_q(p, x, cfg, positions):
+def _project_q(p, x, cfg, positions, pos3=None):
     B, S, _ = x.shape
     q = x @ p["wq"]
     if "bq" in p:
@@ -174,14 +207,11 @@ def _project_q(p, x, cfg, positions):
     q = q.reshape(B, S, cfg.n_heads, cfg.head_dim)
     if cfg.use_qk_norm:
         q = rmsnorm(q, p["q_norm"], cfg.norm_eps)
-    if cfg.rope_theta > 0:
-        q = apply_rope(q, positions, cfg.rope_theta)
-    return q
+    return _rope(q, cfg, positions, pos3)
 
 
-def compute_kv(p, x, cfg, positions=None):
-    """Project k, v for writing a KV cache (used by decode/prefill)."""
-    _check_rope(cfg)
+def _project_kv(p, x, cfg):
+    """k, v (B, S, K, hd) with biases and the k norm, before any rotary."""
     B, S, _ = x.shape
     K, hd = cfg.n_kv_heads, cfg.head_dim
     k = x @ p["wk"]
@@ -192,27 +222,42 @@ def compute_kv(p, x, cfg, positions=None):
     v = v.reshape(B, S, K, hd)
     if cfg.use_qk_norm:
         k = rmsnorm(k, p["k_norm"], cfg.norm_eps)
-    if cfg.rope_theta > 0 and positions is not None:
-        k = apply_rope(k, positions, cfg.rope_theta)
     return k, v
 
 
-def attn_apply(p, x, cfg):
+def compute_kv(p, x, cfg, positions=None):
+    """Project k, v for writing a KV cache (used by decode/prefill).  With
+    M-RoPE sections, ``positions`` may be (B, S, 3) or 1-d / 2-d, which
+    broadcasts to all three sections, as in JAX."""
+    k, v = _project_kv(p, x, cfg)
+    if cfg.rope_theta <= 0 or positions is None:
+        return k, v
+    if cfg.m_rope_sections:
+        pos3 = positions if positions.dim() > 2 else \
+            positions[..., None].expand(*k.shape[:2], 3)
+        return apply_m_rope(k, pos3, cfg.m_rope_sections,
+                            cfg.rope_theta), v
+    return apply_rope(k, positions, cfg.rope_theta), v
+
+
+def attn_apply(p, x, cfg, pos3=None):
     """Causal self-attention of a whole prompt (the prompt forward of
     one-shot prefill).
 
-    x: (B, S, D) at positions [0, S).  Projections, q/k norm and RoPE as
+    x: (B, S, D) at positions [0, S).  Projections, q/k norm and the
+    rotary (M-RoPE at ``pos3`` (B, S, 3) where the config has sections and
+    it is given, else RoPE at [0, S), as JAX's ``attn_apply`` chooses) as
     in the paged paths, then ``kernels.ops.flash_attention`` (causal, with
     ``cfg.sliding_window``) over the prompt's own keys.  Returns
     (attn_out (B, S, D), (k, v) each (B, S, K, hd) in x.dtype), as JAX's
     ``attn_apply`` does.
     """
     B, S, D = x.shape
-    _check_rope(cfg)
     H, hd = cfg.n_heads, cfg.head_dim
     positions = torch.arange(S, device=x.device)
-    q = _project_q(p, x, cfg, positions)
-    k, v = compute_kv(p, x, cfg, positions=positions)
+    q = _project_q(p, x, cfg, positions, pos3)
+    k, v = _project_kv(p, x, cfg)
+    k = _rope(k, cfg, positions, pos3)
     out = kops.flash_attention(q.contiguous(), k.contiguous(),
                                v.contiguous(), causal=True,
                                window=cfg.sliding_window)
@@ -269,8 +314,11 @@ def dense_decode_attn_apply(p, x, cfg, ck, cv, cur, write_idx, k_pos,
     T = ck.shape[1]
     H, hd = cfg.n_heads, cfg.head_dim
     qpos = cur.long().view(1, 1).expand(B, 1)
-    q = _project_q(p, x, cfg, qpos)
-    knew, vnew = compute_kv(p, x, cfg, positions=qpos)
+    # M-RoPE configs: every section at cur (JAX's pos3 for text decode)
+    pos3 = qpos[..., None].expand(B, 1, 3) if cfg.m_rope_sections else None
+    q = _project_q(p, x, cfg, qpos, pos3)
+    knew, vnew = compute_kv(p, x, cfg,
+                            positions=qpos if pos3 is None else pos3)
     idx = write_idx.long().clamp(max=T - 1).view(1)
     ck.index_copy_(1, idx, knew.to(ck.dtype))
     cv.index_copy_(1, idx, vnew.to(cv.dtype))
@@ -280,23 +328,25 @@ def dense_decode_attn_apply(p, x, cfg, ck, cv, cur, write_idx, k_pos,
     return out.reshape(B, 1, H * hd) @ p["wo"]
 
 
-def paged_attn_apply(p, x, cfg, k_pages, v_pages, block_tables, seq_lens):
+def paged_attn_apply(p, x, cfg, k_pages, v_pages, block_tables, seq_lens,
+                     pos3=None):
     """Single-token decode attention against a block-table-indexed KV pool.
 
     x: (B, 1, D); k_pages/v_pages: (P, bt, K, hd) one layer's arena;
-    block_tables: (B, nb) int32; seq_lens: (B,) int32 tokens resident.
-    The current token's k/v are projected here, folded into the softmax by
-    the kernel, and returned (in the pool dtype) for the caller to
-    scatter into the pool.  Returns (attn_out (B, 1, D), (k_new, v_new)
-    each (B, 1, K, hd)).
+    block_tables: (B, nb) int32; seq_lens: (B,) int32 tokens resident;
+    ``pos3`` (B, 1, 3): the M-RoPE positions of an M-RoPE config (JAX
+    passes the lengths broadcast).  The current token's k/v are projected
+    here, folded into the softmax by the kernel, and returned (in the pool
+    dtype) for the caller to scatter into the pool.  Returns (attn_out
+    (B, 1, D), (k_new, v_new) each (B, 1, K, hd)).
     """
     B, S, D = x.shape
     assert S == 1, "paged attention is a decode (single-query) path"
-    _check_rope(cfg)
     H, hd = cfg.n_heads, cfg.head_dim
     qpos = seq_lens[:, None]                             # (B, 1)
-    q = _project_q(p, x, cfg, qpos)
-    kn, vn = compute_kv(p, x, cfg, positions=qpos)
+    q = _project_q(p, x, cfg, qpos, pos3)
+    kn, vn = compute_kv(p, x, cfg, positions=pos3 if cfg.m_rope_sections
+                        else qpos)
     # kv is stored (and attended) in the pool dtype
     kn = kn.to(k_pages.dtype)
     vn = vn.to(v_pages.dtype)
@@ -309,24 +359,26 @@ def paged_attn_apply(p, x, cfg, k_pages, v_pages, block_tables, seq_lens):
 
 
 def paged_prefill_attn_apply(p, x, cfg, k_pages, v_pages, block_tables,
-                             ctx_lens):
+                             ctx_lens, pos3=None):
     """Chunk-resumable prefill attention against a block-table-indexed KV
     pool.
 
     x: (B, C, D) one prompt chunk per slot at absolute positions
     ``ctx_lens + [0, C)``; k_pages/v_pages: (P, bt, K, hd) one layer's
-    arena holding the ``ctx_lens`` tokens of earlier chunks.  The chunk's
-    own k/v are folded in by the kernel under the in-chunk causal mask and
-    returned (in the pool dtype) for the caller to scatter.  Returns
-    (attn_out (B, C, D), (k_new, v_new) each (B, C, K, hd)).
+    arena holding the ``ctx_lens`` tokens of earlier chunks; ``pos3``
+    (B, C, 3): an M-RoPE config's positions (JAX passes the absolute
+    positions broadcast).  The chunk's own k/v are folded in by the kernel
+    under the in-chunk causal mask and returned (in the pool dtype) for
+    the caller to scatter.  Returns (attn_out (B, C, D), (k_new, v_new)
+    each (B, C, K, hd)).
     """
     B, C, D = x.shape
-    _check_rope(cfg)
     H, hd = cfg.n_heads, cfg.head_dim
     positions = ctx_lens[:, None] + torch.arange(
         C, device=x.device, dtype=ctx_lens.dtype)[None, :]   # (B, C)
-    q = _project_q(p, x, cfg, positions)
-    kn, vn = compute_kv(p, x, cfg, positions=positions)
+    q = _project_q(p, x, cfg, positions, pos3)
+    kn, vn = compute_kv(p, x, cfg, positions=pos3 if cfg.m_rope_sections
+                        else positions)
     kn = kn.to(k_pages.dtype).contiguous()
     vn = vn.to(v_pages.dtype).contiguous()
     out = kops.paged_prefill_attention(q.contiguous(), k_pages, v_pages,

@@ -1,10 +1,11 @@
 """Unified model API: ``build_model(cfg) -> Model`` (PyTorch counterpart
-of ``repro/models/model.py``): the dense and moe families on the paged KV
-plane (one-shot and chunked prefill, paged decode) and on the dense-cache
-plane (bucketed or exact-length prefill into a (slots, max_len) cache, a
-ring under a sliding window, decode at a shared write index), the hybrid
-family on the dense-cache plane.  As in JAX, the paged callables are
-``None`` for a family without a uniform KV stack (hybrid).
+of ``repro/models/model.py``): the dense, moe and vlm families on the
+paged KV plane (one-shot and chunked prefill, paged decode) and on the
+dense-cache plane (bucketed or exact-length prefill into a (slots,
+max_len) cache, a ring under a sliding window, decode at a shared write
+index), the hybrid and ssm (xLSTM) families on the dense-cache plane.  As
+in JAX, the paged callables are ``None`` for a family without a uniform
+KV stack (hybrid, ssm).
 
 Entry points run on the CUDA card unless the caller passes
 ``device="cpu"``; without a card they raise (``repro_torch.device``).
@@ -27,10 +28,12 @@ class Model:
     cfg: ModelConfig
     schema: Any
     prefill: Callable
-    # (params, tokens (B, S), max_len=None, valid_len=None) -> (logits at
-    #   the last (valid) position, cache of lm_init_cache's structure
-    #   packed to T = kv_cache_len(max_len or S)); valid_len marks the
-    #   real length of right-padded tokens (dense/moe bucketed prefill)
+    # (params, tokens (B, S), max_len=None, valid_len=None, *,
+    #   vis_embeds=None, pos_ids=None) -> (logits at the last (valid)
+    #   position, cache of lm_init_cache's structure packed to T =
+    #   kv_cache_len(max_len or S)); valid_len marks the real length of
+    #   right-padded tokens (dense/moe/vlm bucketed prefill); vis_embeds
+    #   and pos_ids are a vlm prompt's image rows and M-RoPE positions
     init_cache: Optional[Callable] = None
     # (batch, max_len, device=None) -> dense cache
     decode_step: Optional[Callable] = None
@@ -66,8 +69,9 @@ class Model:
 def build_model(cfg: ModelConfig) -> Model:
     transformer.require_ported_family(cfg)
 
-    def prefill(p, t, max_len=None, valid_len=None):
-        return transformer.lm_prefill(p, cfg, t, max_len, valid_len)
+    def prefill(p, t, max_len=None, valid_len=None, **vlm_inputs):
+        return transformer.lm_prefill(p, cfg, t, max_len, valid_len,
+                                      **vlm_inputs)
 
     dense_plane = dict(
         cfg=cfg,
@@ -78,7 +82,7 @@ def build_model(cfg: ModelConfig) -> Model:
                                       device=resolve_device(device)),
         decode_step=lambda p, c, t: transformer.lm_decode_step(p, cfg, c, t),
     )
-    if cfg.family == "hybrid":
+    if cfg.family in ("hybrid", "ssm"):
         return Model(**dense_plane)
 
     def init_paged_cache(batch, max_len, block_tokens=16, frames=None,

@@ -1,12 +1,16 @@
 """Decoder-only LM (PyTorch counterpart of ``repro/models/transformer.py``):
-the dense and moe families on the paged KV plane (the exact-length prompt
-forward of one-shot prefill, ``lm_prefill``, and its page write, chunked
-prefill, paged decode; with a sliding window too, whose one-shot rows come
-ring-packed as in JAX), and every ported family on the dense-cache plane
-(``lm_init_cache``, ``lm_prefill`` with ``max_len`` and, for bucketed
-prefill, ``valid_len``, ``lm_decode_step``): the dense and moe families'
-(L, B, T, K, hd) KV cache, a sliding-window ring under a window, and the
-zamba2-style hybrid's cache of group KV and Mamba2 states.
+the dense, moe and vlm families on the paged KV plane (the exact-length
+prompt forward of one-shot prefill, ``lm_prefill``, and its page write,
+chunked prefill, paged decode; with a sliding window too, whose one-shot
+rows come ring-packed as in JAX), and every ported family on the
+dense-cache plane (``lm_init_cache``, ``lm_prefill`` with ``max_len`` and,
+for bucketed prefill, ``valid_len``, ``lm_decode_step``): the dense, moe
+and vlm families' (L, B, T, K, hd) KV cache, a sliding-window ring under a
+window, the zamba2-style hybrid's cache of group KV and Mamba2 states, and
+the xLSTM (ssm) family's per-layer recurrent states.  The vlm family
+(qwen2-vl) rotates with M-RoPE: ``lm_prefill`` takes image rows
+(``vis_embeds``) and (t, h, w) positions (``pos_ids``); the serving steps
+give all three sections the token's position, as JAX's do.
 
 The stacked ``(L, ...)`` block params keep JAX's leaf names and layouts
 (hybrid: ``mamba_groups`` stacked ``(n_groups, every, ...)``,
@@ -27,22 +31,24 @@ import torch.nn.functional as F
 
 from repro_torch.models import moe as moe_mod
 from repro_torch.models import ssm as ssm_mod
+from repro_torch.models import xlstm as xl
 from repro_torch.models.layers import (
     ParamDef, attn_apply, attn_schema, dense_decode_attn_apply, mlp_apply,
     mlp_schema, paged_attn_apply, paged_prefill_attn_apply, rmsnorm,
     stack_schema,
 )
 
-_PAGED_FAMILIES = ("dense", "moe")
-_LATER = {"vlm": "VLM on the paged plane",
-          "ssm": "xLSTM with continuous admission (non-paged families)",
-          "audio": "whisper (encoder-decoder, non-paged families)"}
+# the families whose whole cache is a uniform causal (L, B, T, K, hd) KV
+# stack: they page, and right-padded (bucketed) prefill is exact for them
+_PAGED_FAMILIES = ("dense", "moe", "vlm")
+_LATER = {"audio": "whisper (encoder-decoder, non-paged families)"}
 
 
 def require_ported_family(cfg):
-    """The port serves the dense and moe families on the paged and the
-    dense-cache plane, and the hybrid family on the dense-cache plane."""
-    if cfg.family not in _PAGED_FAMILIES + ("hybrid",):
+    """The port serves the dense, moe and vlm families on the paged and the
+    dense-cache plane, and the hybrid and ssm families on the dense-cache
+    plane."""
+    if cfg.family not in _PAGED_FAMILIES + ("hybrid", "ssm"):
         later = _LATER.get(cfg.family, "a later slice")
         raise NotImplementedError(
             f"family {cfg.family!r} is not ported yet; it comes with the "
@@ -50,7 +56,7 @@ def require_ported_family(cfg):
 
 
 def require_paged_family(cfg):
-    """Guard of the paged-plane entry points: dense and moe."""
+    """Guard of the paged-plane entry points: dense, moe and vlm."""
     require_ported_family(cfg)
     if cfg.family not in _PAGED_FAMILIES:
         raise ValueError(f"family {cfg.family!r} has no paged KV path (its "
@@ -111,9 +117,24 @@ def lm_schema(cfg) -> Dict[str, Any]:
         if tail:
             s["mamba_tail"] = stack_schema(mb, tail)
         s["shared"] = _block_schema(cfg)
+    elif cfg.family == "ssm":
+        # per-layer dicts (12 heterogeneous layers, unrolled in JAX), each
+        # with a marker leaf naming its kind
+        layers = {}
+        for i in range(cfg.n_layers):
+            kind = _layer_kind(cfg, i)
+            sch = xl.slstm_schema(cfg) if kind == "slstm" \
+                else xl.mlstm_schema(cfg)
+            layers[f"l{i:02d}"] = {"kind_" + kind: ParamDef((1,), "zeros"),
+                                   "norm": ParamDef((D,), "zeros"), **sch}
+        s["layers"] = layers
     else:
         s["blocks"] = stack_schema(_block_schema(cfg), cfg.n_layers)
     return s
+
+
+def _layer_kind(cfg, i: int) -> str:
+    return "slstm" if i in cfg.slstm_layers else "mlstm"
 
 
 def layer_params(blocks, i: int):
@@ -125,8 +146,14 @@ def layer_params(blocks, i: int):
 # --------------------------------------------------------------------------
 # Embedding / logits
 # --------------------------------------------------------------------------
-def _embed(params, tokens):
-    return params["emb"][tokens.long()]
+def _embed(params, tokens, vis_embeds=None):
+    """Token rows; a vlm prompt's image rows ``vis_embeds`` (B, P, D)
+    replace its first P rows (JAX's ``_embed``)."""
+    x = params["emb"][tokens.long()]
+    if vis_embeds is not None:
+        P = vis_embeds.shape[1]
+        x = torch.cat([vis_embeds.to(x.dtype), x[:, P:]], dim=1)
+    return x
 
 
 def _logits(params, cfg, x):
@@ -197,11 +224,11 @@ def lm_kv_migrate(near, far, dem_src, dem_dst, pro_src, pro_dst):
 # --------------------------------------------------------------------------
 # One-shot prefill: exact-length prompt forward, then one page write
 # --------------------------------------------------------------------------
-def _attn_block(bp, x, cfg):
+def _attn_block(bp, x, cfg, pos3=None):
     """Pre-norm causal self-attention of the whole prompt, with residual;
     returns (x, (k, v))."""
     h = rmsnorm(x, bp["ln1"], cfg.norm_eps)
-    attn_out, kv = attn_apply(bp["attn"], h, cfg)
+    attn_out, kv = attn_apply(bp["attn"], h, cfg, pos3)
     return x + attn_out, kv
 
 
@@ -235,6 +262,22 @@ def _hybrid_forward(params, cfg, x):
     return x, ks, vs, states
 
 
+def _ssm_forward(params, cfg, x):
+    """The xLSTM layers over the prompt: pre-norm (the ``rmsnorm`` kernel
+    on a card), the mLSTM or sLSTM block from a zero state, residual.
+    Returns (x, {lNN: final state})."""
+    states = {}
+    for i in range(cfg.n_layers):
+        key = f"l{i:02d}"
+        lp = params["layers"][key]
+        h = rmsnorm(x, lp["norm"], cfg.norm_eps)
+        apply = xl.slstm_apply if _layer_kind(cfg, i) == "slstm" \
+            else xl.mlstm_apply
+        y, states[key] = apply(lp, h, cfg)
+        x = x + y
+    return x, states
+
+
 def _pack_kv(kv, B, T, cfg, like):
     """Stacked (n, B, S, K, hd) rows sliced or zero-padded to T positions
     (a prompt longer than T keeps its last T); no groups (hybrid) -> an
@@ -264,7 +307,8 @@ def _ring_pack(k, v, S, T):
     return k[:, :, src], v[:, :, src], ring.to(torch.int32)
 
 
-def lm_prefill(params, cfg, tokens, max_len=None, valid_len=None):
+def lm_prefill(params, cfg, tokens, max_len=None, valid_len=None, *,
+               vis_embeds=None, pos_ids=None):
     """Forward over whole prompts, returning (logits (B, V) at the last
     position, cache).
 
@@ -274,7 +318,8 @@ def lm_prefill(params, cfg, tokens, max_len=None, valid_len=None):
     the ``ssd_scan`` kernel on a card); the final norm runs over the whole
     sequence, as JAX's ``lm_hidden`` does.
 
-    Dense and moe: cache {"k", "v": (L, B, T, K, hd) in the compute dtype,
+    Dense, moe and vlm: cache {"k", "v": (L, B, T, K, hd) in the compute
+    dtype,
     "cur": S as a 0-d int32} with T = ``kv_cache_len(cfg, max_len or
     S)``: the KV zero-padded to T rows, or its last T positions.  With a
     sliding window W the rows come in JAX's ring order (row i holds the
@@ -289,10 +334,17 @@ def lm_prefill(params, cfg, tokens, max_len=None, valid_len=None):
 
     Hybrid: {"k", "v": (n_groups, B, T, K, hd) with T = max_len or S,
     "ssm": (n_layers, B, h, hd, S) f32, "conv": (n_layers, B, w - 1, di)
-    bf16, "cur": S}.
+    bf16, "cur": S}.  Ssm (xLSTM): {"states": {lNN: the layer's final
+    mLSTM {"C", "n", "m"} or sLSTM {"c", "n", "h", "m"} state, f32},
+    "cur": S}; ``max_len`` does not apply (the state is O(1) a slot).
+
+    Vlm: ``vis_embeds`` (B, P, D) replace the first P token rows (image
+    rows), and ``pos_ids`` (B, S, 3) int (t, h, w) rotate q and k with
+    M-RoPE; without ``pos_ids`` the attention takes RoPE at [0, S), as in
+    JAX.  Other families ignore both, as JAX does.
     """
     require_ported_family(cfg)
-    if valid_len is not None and (cfg.family == "hybrid"
+    if valid_len is not None and (cfg.family not in _PAGED_FAMILIES
                                   or cfg.sliding_window
                                   or (cfg.family == "moe"
                                       and cfg.moe_routing != "dropless")):
@@ -304,9 +356,16 @@ def lm_prefill(params, cfg, tokens, max_len=None, valid_len=None):
             f"without a sliding window and pad-invariant routing, got "
             f"family={cfg.family!r} window={cfg.sliding_window}")
     B, S = tokens.shape
-    x = _embed(params, tokens)
+    vlm = cfg.family == "vlm"
+    x = _embed(params, tokens, vis_embeds if vlm else None)
+    pos3 = pos_ids if vlm else None
     n = S if valid_len is None else int(valid_len)
     cur = torch.full((), n, dtype=torch.int32, device=tokens.device)
+    if cfg.family == "ssm":
+        x, states = _ssm_forward(params, cfg, x)
+        x = rmsnorm(x, params["final_norm"], cfg.norm_eps)
+        return _logits(params, cfg, x[:, -1:])[:, 0], {"states": states,
+                                                       "cur": cur}
     if cfg.family == "hybrid":
         x, ks, vs, states = _hybrid_forward(params, cfg, x)
         x = rmsnorm(x, params["final_norm"], cfg.norm_eps)
@@ -320,7 +379,7 @@ def lm_prefill(params, cfg, tokens, max_len=None, valid_len=None):
     ks, vs = [], []
     for i in range(cfg.n_layers):
         bp = layer_params(params["blocks"], i)
-        x, (k, v) = _attn_block(bp, x, cfg)
+        x, (k, v) = _attn_block(bp, x, cfg, pos3)
         x = _ffn_block(bp, x, cfg)
         ks.append(k)
         vs.append(v)
@@ -403,13 +462,16 @@ def lm_paged_prefill_chunk(params, cfg, pages, tokens, block_tables,
     dev = tokens.device
     x = _embed(params, tokens)
     positions = ctx_lens.long()[:, None] + torch.arange(C, device=dev)[None]
+    # M-RoPE: every section at the absolute position (text), as in JAX
+    pos3 = positions[..., None].expand(B, C, 3) if cfg.m_rope_sections \
+        else None
     kp, vp = pages["kp"], pages["vp"]
     kns, vns = [], []
     for i in range(cfg.n_layers):
         bp = layer_params(params["blocks"], i)
         h = rmsnorm(x, bp["ln1"], cfg.norm_eps)
         attn_out, (kn, vn) = paged_prefill_attn_apply(
-            bp["attn"], h, cfg, kp[i], vp[i], block_tables, ctx_lens)
+            bp["attn"], h, cfg, kp[i], vp[i], block_tables, ctx_lens, pos3)
         x = x + attn_out
         x = _ffn_block(bp, x, cfg)
         kns.append(kn)
@@ -447,13 +509,16 @@ def lm_paged_decode_step(params, cfg, pages, tokens, block_tables, seq_lens):
     B = tokens.shape[0]
     dev = tokens.device
     x = _embed(params, tokens)
+    # M-RoPE: every section at the slot's length (text), as in JAX
+    pos3 = seq_lens.long()[:, None, None].expand(B, 1, 3) \
+        if cfg.m_rope_sections else None
     kp, vp = pages["kp"], pages["vp"]
     kns, vns = [], []
     for i in range(cfg.n_layers):
         bp = layer_params(params["blocks"], i)
         h = rmsnorm(x, bp["ln1"], cfg.norm_eps)
         attn_out, (kn, vn) = paged_attn_apply(
-            bp["attn"], h, cfg, kp[i], vp[i], block_tables, seq_lens)
+            bp["attn"], h, cfg, kp[i], vp[i], block_tables, seq_lens, pos3)
         x = x + attn_out
         x = _ffn_block(bp, x, cfg)
         kns.append(kn[:, 0])
@@ -481,17 +546,25 @@ def lm_paged_decode_step(params, cfg, pages, tokens, block_tables, seq_lens):
 def lm_init_cache(cfg, batch: int, max_len: int, dtype=None, device=None):
     """Zero-initialised dense decode cache, "cur" 0 as a 0-d int32.
 
-    Dense and moe: {"k", "v": (L, batch, T, K, hd)} in ``cfg.cache_dtype``
-    with T = ``kv_cache_len(cfg, max_len)``, and under a sliding window
-    "pos": (T,) int32 all -1 (no ring row written yet).  Hybrid: {"k",
-    "v": (n_groups, batch, max_len, K, hd) and "conv": (n_layers, batch,
-    w - 1, di) in ``cfg.cache_dtype``, "ssm": (n_layers, batch, h, hd, S)
-    f32}."""
+    Dense, moe and vlm: {"k", "v": (L, batch, T, K, hd)} in
+    ``cfg.cache_dtype`` with T = ``kv_cache_len(cfg, max_len)``, and under
+    a sliding window "pos": (T,) int32 all -1 (no ring row written yet).
+    Hybrid: {"k", "v": (n_groups, batch, max_len, K, hd) and "conv":
+    (n_layers, batch, w - 1, di) in ``cfg.cache_dtype``, "ssm": (n_layers,
+    batch, h, hd, S) f32}.  Ssm: {"states": {lNN: the layer's zero mLSTM
+    or sLSTM state, f32}}, whatever ``max_len``."""
     require_ported_family(cfg)
     if dtype is None:
         dtype = getattr(torch, cfg.cache_dtype)
     K, hd = cfg.n_kv_heads, cfg.head_dim
     cur = torch.zeros((), dtype=torch.int32, device=device)
+    if cfg.family == "ssm":
+        states = {}
+        for i in range(cfg.n_layers):
+            init = xl.slstm_init_state if _layer_kind(cfg, i) == "slstm" \
+                else xl.mlstm_init_state
+            states[f"l{i:02d}"] = init(cfg, batch, device)
+        return {"states": states, "cur": cur}
     if cfg.family != "hybrid":
         T = kv_cache_len(cfg, max_len)
         kv = (cfg.n_layers, batch, T, K, hd)
@@ -513,8 +586,26 @@ def lm_init_cache(cfg, batch: int, max_len: int, dtype=None, device=None):
             "cur": cur}
 
 
+def _ssm_decode_step(params, cfg, cache, tokens):
+    """The xLSTM decode step (JAX's ``lm_decode_step`` ssm branch): each
+    layer's recurrent step from its state; returns new state tensors."""
+    x = _embed(params, tokens)
+    new_states = {}
+    for i in range(cfg.n_layers):
+        key = f"l{i:02d}"
+        lp = params["layers"][key]
+        h = rmsnorm(x, lp["norm"], cfg.norm_eps)
+        step = xl.slstm_decode_step if _layer_kind(cfg, i) == "slstm" \
+            else xl.mlstm_decode_step
+        y, new_states[key] = step(lp, h, cache["states"][key], cfg)
+        x = x + y
+    x = rmsnorm(x, params["final_norm"], cfg.norm_eps)
+    return _logits(params, cfg, x)[:, 0], {"states": new_states,
+                                           "cur": cache["cur"] + 1}
+
+
 def _kv_decode_step(params, cfg, cache, tokens):
-    """The dense and moe families' dense-cache decode step (JAX's
+    """The dense, moe and vlm families' dense-cache decode step (JAX's
     ``lm_decode_step`` dense branch): every slot decodes at ``cur``.
     Without a ring the new k/v land in row ``cur`` (clamped to T - 1) and
     each slot attends rows <= cur; under a sliding window they land in
@@ -553,13 +644,16 @@ def lm_decode_step(params, cfg, cache, tokens):
     at the shared write index ``cur``; the cache is updated IN PLACE and
     returned with ``cur + 1``.
 
-    Dense and moe: ``_kv_decode_step``.  Hybrid: each group's k/v at
-    ``cur`` and each layer's ssm state in place.  The conv leaf comes back
+    Dense, moe and vlm: ``_kv_decode_step``.  Ssm: ``_ssm_decode_step``
+    (new state tensors; the engine keeps what it returns).  Hybrid: each
+    group's k/v at ``cur`` and each layer's ssm state in place.  The conv leaf comes back
     bf16, as JAX's does: a bf16 leaf is written in place, a leaf of
     another dtype (an f32 cache before its first step) is replaced by a
     bf16 one.
     """
     require_ported_family(cfg)
+    if cfg.family == "ssm":
+        return _ssm_decode_step(params, cfg, cache, tokens)
     if cfg.family != "hybrid":
         return _kv_decode_step(params, cfg, cache, tokens)
     ng, every, tail = hybrid_layout(cfg)

@@ -1,9 +1,9 @@
 """Serving runtime (PyTorch counterpart of ``repro/runtime/server.py``).
 
 ``BatchServer`` is the synchronous tick loop of the JAX engine, on the
-paged plane (dense and moe families) with chunked or one-shot prefill,
-and on the dense-cache plane (``paged_kv=False`` for the dense and moe
-families; the hybrid family, which has no paged path, always):
+paged plane (dense, moe and vlm families) with chunked or one-shot
+prefill, and on the dense-cache plane (``paged_kv=False`` for those
+families; the hybrid and ssm families, which have no paged path, always):
 
   * requests arrive as wire messages (``core.rpc``) and are billed by the
     SimCXL NIC cost model (``runtime.niccost``);
@@ -40,11 +40,16 @@ families; the hybrid family, which has no paged path, always):
     ``prefill_batch`` prefilled in one ``model.prefill`` to ``max_len``
     and spliced into the (slots, max_len) cache; every tick decodes all
     slots in one ``model.decode_step``, and the pager only accounts.  For
-    the dense and moe families (dropless routing) the group's prompts pad
-    up to the next rung of a geometric bucket ladder (``dense_buckets``,
-    ``valid_len`` carrying the real length); under a sliding window the
-    cache is a ring of window rows (``cache["pos"]``) and prefill is
-    exact-length.
+    the dense, moe (dropless routing) and vlm families the group's prompts
+    pad up to the next rung of a geometric bucket ladder
+    (``dense_buckets``, ``valid_len`` carrying the real length); under a
+    sliding window the cache is a ring of window rows (``cache["pos"]``)
+    and prefill is exact-length;
+  * the ssm family (xLSTM), whose cache is per-slot recurrent state with
+    no shared write index, admits continuously (``self.continuous``, as
+    in JAX): a free slot takes the next request whatever its prompt
+    length, its states splice into the nested cache tree, ``max_len``
+    caps no request, and the pager accounts an O(1) state a slot.
 On a CUDA device the steps run their attention, norms, SSD scans (and,
 for the moe family, the expert GEMMs and the gated combine) in the
 hand-written kernels of ``kernels.ops``; on the CPU in the plain versions.
@@ -149,14 +154,19 @@ def _tree_nbytes(tree) -> int:
 
 def _splice_rows_tree(cache, cache1, slots: torch.Tensor, n_slots: int):
     """Write a B=k prefill cache into batch rows ``slots`` of the shared
-    cache, in place (``index_copy_``): stacked (L, B, ...) leaves on axis
-    1, per-batch (B, ...) leaves on axis 0, cast to the shared leaf's
-    dtype.  Scalars and 1-d leaves pass through: the caller owns the
-    shared write index and the sliding-window ring's (T,) positions,
-    which no slot count may be mistaken for a batch dim of."""
+    cache, in place (``index_copy_``), leaf by leaf through the nested
+    tree (the xLSTM cache's per-layer state dicts too), as JAX's
+    ``jax.tree.map`` does: stacked (L, B, ...) leaves on axis 1,
+    per-batch (B, ...) leaves on axis 0, cast to the shared leaf's dtype.
+    Scalars and 1-d leaves pass through: the caller owns the shared write
+    index and the sliding-window ring's (T,) positions, which no slot
+    count may be mistaken for a batch dim of."""
     k = slots.shape[0]
     for name, full in cache.items():
         one = cache1[name]
+        if isinstance(full, dict):
+            _splice_rows_tree(full, one, slots, n_slots)
+            continue
         if one.dim() < 2:
             continue
         if one.shape[1] == k and full.shape[1] == n_slots:
@@ -180,7 +190,8 @@ class BatchServer:
     """Slot-based batching: on the paged KV plane chunked bucketed or
     one-shot grouped prefill plus batched paged decode; on the dense-cache
     plane (``paged_kv=False``, and what ``auto`` resolves to for a model
-    without a paged path) equal-length admission waves, grouped (bucketed)
+    without a paged path) equal-length admission waves (continuous
+    admission for the ssm family's recurrent states), grouped (bucketed)
     prefill spliced into the dense cache, and batched decode of every
     slot.
 
@@ -212,6 +223,10 @@ class BatchServer:
             raise ValueError(f"paged_kv requested but model {cfg.family!r} "
                              f"has no paged decode path")
         self.paged = bool(paged_kv)
+        # recurrent-state families admit continuously; shared-write-index
+        # KV caches admit in equal-prompt-length waves (scheduler.py),
+        # unless the paged plane (per-slot lengths) is active
+        self.continuous = cfg.family == "ssm"
         # prefill is chunk/pad-invariant iff routing decisions are a pure
         # per-token function: every family except capacity-factor MoE,
         # whose expert drops depend on the token population of each
@@ -234,7 +249,7 @@ class BatchServer:
             # routing; explicit prefill_chunk=0 keeps exact-length prefill
             dense_bucketed = (prefill_chunk in ("auto", None)
                               and chunk_invariant and not self.window
-                              and cfg.family in ("dense", "moe"))
+                              and cfg.family in ("dense", "moe", "vlm"))
             prefill_chunk = 0
         elif prefill_chunk in ("auto", None):
             prefill_chunk = min(64, max_len) if chunk_invariant else 0
@@ -352,12 +367,13 @@ class BatchServer:
             pool = CoherentMemoryPool(hbm_bytes=hbm)
             pool.tiers["hbm"].stream_bw_GBs = H100_HBM_STREAM_GBs
         self.table = SlotTable(batch_slots)
-        # shared-write-index caches admit in equal-prompt-length waves;
-        # the paged plane (per-slot lengths) admits continuously
-        self.queue = AdmissionQueue(continuous=self.paged)
+        self.queue = AdmissionQueue(continuous=self.continuous or self.paged)
+        # a continuously admitted family's per-slot states are O(1): the
+        # reference's pager counts them as fixed bytes, never per token
+        # (``paged=has_kv`` there)
         self.pager = KVBlockPager(self.cache, n_slots=batch_slots,
                                   max_len=max_len, block_tokens=block_tokens,
-                                  paged=True, pool=pool,
+                                  paged=not self.continuous, pool=pool,
                                   params_bytes=_tree_nbytes(self.params),
                                   hbm_budget=hbm, track_table=self.paged,
                                   footprint=footprint,
@@ -586,10 +602,11 @@ class BatchServer:
             self.cache = _splice_rows_tree(
                 self.cache, cache1, self._to_device(
                     np.asarray(slot_arr, np.int64)), self.slots)
-            # shared write index: admission waves have equal prompt
-            # lengths, so overwriting it never moves it under an in-flight
-            # request
-            self.cache["cur"] = cache1["cur"]
+            if not self.continuous:
+                # shared write index: admission waves have equal prompt
+                # lengths, so overwriting it never moves it under an
+                # in-flight request
+                self.cache["cur"] = cache1["cur"]
             if "pos" in self.cache:
                 # the shared sliding-window ring positions: every in-flight
                 # slot sits at the same cur, and the freshly prefilled ring
@@ -636,7 +653,7 @@ class BatchServer:
                         break
                     planned += need
             empty = not self.active and not group
-            if self.paged or empty:
+            if self.continuous or self.paged or empty:
                 wi = 0                            # unused by the policy
             elif group:
                 # mid-wave: the group fixes the admissible prompt length
@@ -703,9 +720,10 @@ class BatchServer:
         return buf
 
     def _exhausted(self, req: Request) -> bool:
-        # JAX skips the max_len cap only for continuously admitted
-        # (recurrent-state, xLSTM) families, which the port does not serve
-        return len(req.generated) >= req.max_new or req.pos >= self.max_len
+        # continuously admitted (recurrent-state, xLSTM) families hold an
+        # O(1) state a slot: no max_len caps them, as in JAX
+        return len(req.generated) >= req.max_new or \
+            (not self.continuous and req.pos >= self.max_len)
 
     def _harvest(self, now: float) -> List[bytes]:
         out = [self._finish(req, now)

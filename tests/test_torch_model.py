@@ -130,6 +130,6 @@ def test_init_on_cpu_is_seeded_and_bf16():
 
 
 def test_other_families_name_their_slice():
-    tcfg = reduced(get_config("mistral-nemo-12b")).replace(family="vlm")
-    with pytest.raises(NotImplementedError, match="VLM"):
+    tcfg = reduced(get_config("mistral-nemo-12b")).replace(family="audio")
+    with pytest.raises(NotImplementedError, match="whisper"):
         build_model(tcfg)
